@@ -1,0 +1,295 @@
+"""Spann3R: DUSt3R wrapped in a spatial memory, and the streaming engine.
+
+Module keys are the reference's (`dust3r.*`, `value_encoder.{i}`,
+`value_norm`, `value_out`, `norm_q`, `norm_k`, `norm_v`, `attn_head_1.0`,
+`attn_head_1.2`, `pos_patch_embed.proj`).
+
+Streaming inference follows the JAX package's chunked scan: each chunk's
+frames go through the encoder in one batch, then a Python loop runs the
+sequential part frame by frame (memory read, dual decoder, attn-head MLPs,
+reference-frame head, value encoder, memory write). The target-frame head
+runs once per video on the carried decoder hook states.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import BF16, Precision, Spann3RConfig, ViTConfig
+from ..ops.layers import gelu, init_conv_, init_modules_, layer_norm, linear
+from . import dust3r as d3
+from .memory import MemoryState, add_mem_check, init_memory, memory_read
+from .vit import Block, PatchEmbed, encoder_apply, patch_embed_apply
+
+
+def value_encoder_cfg(cfg: Spann3RConfig) -> ViTConfig:
+    # rope disabled unless mem_pos_enc
+    return ViTConfig(dim=cfg.value_enc_dim, depth=cfg.value_enc_depth,
+                     num_heads=cfg.value_enc_heads,
+                     rope_base=100.0 if cfg.mem_pos_enc else 0.0)
+
+
+class Spann3R(nn.Module):
+    def __init__(self, cfg: Spann3RConfig):
+        super().__init__()
+        vcfg = value_encoder_cfg(cfg)
+        self.dust3r = d3.DUSt3R(cfg.dust3r)
+        self.value_encoder = nn.ModuleList(Block(vcfg) for _ in range(vcfg.depth))
+        self.value_norm = nn.LayerNorm(cfg.value_enc_dim, eps=vcfg.ln_eps)
+        self.value_out = nn.Linear(cfg.value_enc_dim, cfg.attn_head_out)
+        self.norm_q = nn.LayerNorm(cfg.attn_head_out, eps=1e-6)
+        self.norm_k = nn.LayerNorm(cfg.attn_head_out, eps=1e-6)
+        self.norm_v = nn.LayerNorm(cfg.attn_head_out, eps=1e-6)
+        self.attn_head_1 = _attn_head(cfg)
+        self.attn_head_2 = _attn_head(cfg)
+        if not cfg.use_feat:
+            self.pos_patch_embed = PatchEmbed(cfg.dust3r.patch_size, 3,
+                                              cfg.dust3r.enc.dim)
+
+    @torch.no_grad()
+    def init_weights_(self, generator: Optional[torch.Generator]) -> None:
+        """Random init by the JAX package's rules, from `generator`."""
+        for name, child in self.named_children():
+            if name == "dust3r":
+                child.init_weights_(generator)
+            elif name == "pos_patch_embed":
+                init_conv_(child.proj, generator, xavier_flat=True)
+            else:
+                init_modules_(child, generator)
+
+
+def _attn_head(cfg: Spann3RConfig) -> nn.Sequential:
+    # (in -> in -> out) with GELU; keys `.0` and `.2`
+    return nn.Sequential(nn.Linear(cfg.attn_head_in, cfg.attn_head_in),
+                         nn.GELU(),
+                         nn.Linear(cfg.attn_head_in, cfg.attn_head_out))
+
+
+def build_spann3r(cfg: Spann3RConfig, device=None,
+                  generator: Optional[torch.Generator] = None) -> Spann3R:
+    """A randomly initialised model on `device`. The init draws from
+    `generator` on the CPU, so one seed gives the same weights on every
+    device."""
+    with torch.device("meta"):
+        model = Spann3R(cfg)
+    model = model.to_empty(device="cpu")
+    model.init_weights_(generator)
+    return model.to(device).eval()
+
+
+def attn_head_apply(m: nn.Sequential, feat_enc: torch.Tensor,
+                    feat_dec: torch.Tensor) -> torch.Tensor:
+    """Memory query/key features from encoder ++ last decoder features."""
+    x = torch.cat([feat_enc, feat_dec.to(feat_enc.dtype)], dim=-1)
+    return linear(m[2], gelu(linear(m[0], x)))
+
+
+def encode_value(model: Spann3R, cfg: Spann3RConfig, res1_pts: torch.Tensor,
+                 dec_last: torch.Tensor, pos: torch.Tensor,
+                 prec: Precision = BF16) -> torch.Tensor:
+    """Value tokens from the predicted reference pointmap."""
+    vcfg = value_encoder_cfg(cfg)
+    if cfg.use_feat:
+        x, pos_v = dec_last.to(prec.compute_dtype), pos
+    else:
+        x, pos_v = patch_embed_apply(model.pos_patch_embed,
+                                     res1_pts.to(prec.compute_dtype))
+    x = encoder_apply(model.value_encoder, x, pos_v, vcfg)
+    x = layer_norm(model.value_norm, x, vcfg.ln_eps)
+    return linear(model.value_out, x)
+
+
+class PairOutputs(NamedTuple):
+    res1: Dict[str, torch.Tensor]
+    res2: Optional[Dict[str, torch.Tensor]]
+    feat_k1: torch.Tensor
+    feat_k2: torch.Tensor
+    cur_v: torch.Tensor
+    # dec2 hook states (feat2, *block outputs at head_hooks) when the res2
+    # head is deferred (compute_res2=False); None otherwise
+    dec2_hooks: Optional[Tuple[torch.Tensor, ...]] = None
+
+
+def pair_step(model: Spann3R, cfg: Spann3RConfig, feat_fuse: torch.Tensor,
+              feat1: torch.Tensor, feat2: torch.Tensor, pos: torch.Tensor,
+              img_hw: Tuple[int, int], prec: Precision = BF16,
+              compute_res2: bool = True) -> PairOutputs:
+    """Decode one (reference, target) pair and build the memory features.
+    feat_fuse: memory-fused reference features (feat1 on the first pair)."""
+    dcfg = cfg.dust3r
+    dm = model.dust3r
+    dec1, dec2 = d3.decoder(dm, feat_fuse, pos, feat2, pos, dcfg, prec)
+    feat_k1 = attn_head_apply(model.attn_head_1, feat1, dec1[-1])
+    feat_k2 = attn_head_apply(model.attn_head_2, feat2, dec2[-1])
+    res1 = d3.downstream_head(dm, 1, dec1, img_hw, dcfg, prec)
+    if compute_res2:
+        res2, hooks2 = d3.downstream_head(dm, 2, dec2, img_hw, dcfg, prec), None
+    else:
+        res2 = None
+        hooks2 = tuple([dec2[0]] + [dec2[h] for h in d3.head_hooks(dcfg)])
+    cur_v = encode_value(model, cfg, res1["pts3d"], dec1[-1], pos, prec)
+    return PairOutputs(res1, res2, feat_k1, feat_k2, cur_v, hooks2)
+
+
+def head2_from_hooks(model: Spann3R, cfg: Spann3RConfig,
+                     hook_states: Tuple[torch.Tensor, ...],
+                     img_hw: Tuple[int, int],
+                     prec: Precision = BF16) -> Dict[str, torch.Tensor]:
+    """The deferred target-frame head on carried decoder hook states."""
+    states = d3.states_from_hooks(cfg.dust3r, hook_states)
+    return d3.downstream_head(model.dust3r, 2, states, img_hw, cfg.dust3r, prec)
+
+
+# ---------------------------------------------------------------------------
+# chunked video loop (eval memory semantics)
+# ---------------------------------------------------------------------------
+
+class VideoCarry(NamedTuple):
+    mem: MemoryState
+    feat_prev: torch.Tensor
+    feat_k2: torch.Tensor
+    dec2_prev: Tuple[torch.Tensor, ...]
+    have_prev: bool
+    have_key: bool
+
+
+def init_video_carry(cfg: Spann3RConfig, img_hw: Tuple[int, int],
+                     batch: int = 1, prec: Precision = BF16,
+                     device=None) -> VideoCarry:
+    dcfg = cfg.dust3r
+    p_tokens = (img_hw[0] // dcfg.patch_size) * (img_hw[1] // dcfg.patch_size)
+    dt = prec.compute_dtype
+    mem = init_memory(batch, cfg.memory.capacity(p_tokens), cfg.attn_head_out,
+                      dtype=dt, device=device)
+    zeros = lambda d: torch.zeros((batch, p_tokens, d), dtype=dt, device=device)
+    dec2_0 = tuple([zeros(dcfg.enc.dim)]
+                   + [zeros(dcfg.dec.dim) for _ in d3.head_hooks(dcfg)])
+    return VideoCarry(mem, zeros(dcfg.enc.dim), zeros(cfg.attn_head_out),
+                      dec2_0, False, False)
+
+
+def _prep(img: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if img.dtype == torch.uint8:
+        return img.to(dtype) * (2.0 / 255.0) - 1.0
+    return img.to(dtype)
+
+
+@torch.no_grad()
+def scan_video_chunk(model: Spann3R, cfg: Spann3RConfig, carry: VideoCarry,
+                     imgs: torch.Tensor, img_hw: Tuple[int, int],
+                     prec: Precision = BF16, stats: Optional[dict] = None
+                     ) -> Tuple[VideoCarry, List[Optional[Dict]]]:
+    """Process one chunk of frames.
+
+    imgs: (chunk, B, H, W, 3) uint8 or normalised float on the model's
+    device. Returns the new carry and, per frame, the reference-frame
+    prediction {'pts3d', 'conf'} of pair (t-1, t) when the frame was
+    written, else None. Outputs are rounded to bf16 under a bf16 compute
+    dtype, as the JAX scan emits them. `stats`, when given, counts the
+    memory reads.
+
+    The JAX scan has static shapes: it pads the last chunk and computes
+    every step, then selects. Here a chunk may be short, and the steps whose
+    results the scan discards are skipped: the pair step of the first frame
+    and the memory read until a key exists.
+    """
+    dcfg = cfg.dust3r
+    odt = torch.bfloat16 if prec.compute_dtype == torch.bfloat16 else torch.float32
+    chunk, b, h, w, _ = imgs.shape
+    flat = _prep(imgs.reshape(chunk * b, h, w, 3), prec.compute_dtype)
+    feats_all, pos = d3.encode_image(model.dust3r, flat, dcfg, prec)
+    feats_all = feats_all.reshape(chunk, b, *feats_all.shape[-2:])
+    pos = pos[:b]
+
+    mem, feat_prev, feat_k2, dec2_prev, have_prev, have_key = carry
+    ys: List[Optional[Dict]] = []
+    for t in range(chunk):
+        feat2 = feats_all[t]
+        if not have_prev:
+            feat_prev, have_prev = feat2, True
+            ys.append(None)
+            continue
+        if have_key:
+            feat_fuse, mem = memory_read(model, mem, feat_k2,
+                                         attn_thresh=cfg.memory.attn_thresh)
+            if stats is not None:
+                stats["memory_reads"] = stats.get("memory_reads", 0) + 1
+        else:
+            feat_fuse = feat_prev
+        out = pair_step(model, cfg, feat_fuse, feat_prev, feat2, pos, img_hw,
+                        prec, compute_res2=False)
+        mem = add_mem_check(mem, out.feat_k1, out.cur_v + out.feat_k1,
+                            cfg.memory)
+        dec2_prev = out.dec2_hooks
+        feat_prev, feat_k2, have_key = feat2, out.feat_k2, True
+        ys.append({"pts3d": out.res1["pts3d"].to(odt),
+                   "conf": out.res1["conf"].to(odt)})
+    return VideoCarry(mem, feat_prev, feat_k2, dec2_prev, have_prev,
+                      have_key), ys
+
+
+# ---------------------------------------------------------------------------
+# streaming inference engine
+# ---------------------------------------------------------------------------
+
+class InferenceEngine:
+    """Chunked reconstruction of a frame stream with eval memory semantics
+    (cosine dedup, working -> long-term spill, usage-based pruning)."""
+
+    def __init__(self, model: Spann3R, cfg: Spann3RConfig,
+                 img_hw: Tuple[int, int], prec: Precision = BF16,
+                 batch: int = 1):
+        self.model = model
+        self.cfg = cfg
+        self.prec = prec
+        self.img_hw = tuple(img_hw)
+        self.batch = batch
+        self.device = next(model.parameters()).device
+        self.stats: Dict[str, int] = {}
+        self.carry: Optional[VideoCarry] = None
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """Start the copy of one output to the host without waiting: pinned
+        buffers on the card, so later frames keep computing meanwhile."""
+        if t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    @torch.no_grad()
+    def run_video(self, frames, chunk: int = 16) -> List[Dict[str, np.ndarray]]:
+        """frames: (T, B, H, W, 3) uint8 or normalised float (numpy or
+        tensor). Returns the `preds` list: preds[0] has 'pts3d', the rest
+        'pts3d_in_other_view', each with 'conf', all in frame-0
+        coordinates, as fp32 numpy arrays; the last entry is the target
+        frame's prediction from the deferred head."""
+        t_total = len(frames)
+        self.stats = {"memory_reads": 0}
+        carry = init_video_carry(self.cfg, self.img_hw, self.batch, self.prec,
+                                 self.device)
+        emitted = []
+        for s in range(0, t_total, chunk):
+            part = torch.as_tensor(np.asarray(frames[s:s + chunk]))
+            carry, ys = scan_video_chunk(self.model, self.cfg, carry,
+                                         part.to(self.device), self.img_hw,
+                                         self.prec, self.stats)
+            emitted += [{k: self._to_host(v) for k, v in y.items()}
+                        for y in ys if y is not None]
+        self.carry = carry
+        if not emitted:  # no pair was ever formed (e.g. a 1-frame video)
+            return []
+        res2 = head2_from_hooks(self.model, self.cfg, carry.dec2_prev,
+                                self.img_hw, self.prec)
+        emitted.append({k: self._to_host(v) for k, v in res2.items()})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        preds = []
+        for i, y in enumerate(emitted):
+            key = "pts3d" if i == 0 else "pts3d_in_other_view"
+            preds.append({key: y["pts3d"].float().numpy(),
+                          "conf": y["conf"].float().numpy()})
+        return preds

@@ -1,0 +1,130 @@
+"""Self and cross attention with RoPE2D and the SDPA kernel.
+
+`sdpa` computes softmax(q k^T * scale) v with fp32 logits and softmax, the
+normalised probabilities cast to v's dtype, and PV accumulated in fp32
+(the JAX package's numerics). It dispatches on the device of its inputs:
+a CPU tensor takes the plain PyTorch version, a CUDA tensor the CUDA
+kernel (`csrc/sdpa.cu`, head dim 64), which reads q/k/v through their
+strides and writes its output in the layout that merging the heads back
+needs, so neither side copies.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from . import _kernels
+from .layers import linear
+from .rope import rope_2d
+
+
+def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """q (B, H, N, Dh), k/v (B, H, M, Dh) -> (B, H, N, Dh) in v.dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs.float(), v.float()).to(v.dtype)
+
+
+def sdpa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """SDPA through the CUDA kernel. The result is a (B, H, N, Dh) view of
+    a (B, N, H, Dh) buffer."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, N, Dh)")
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    dev = q.device
+    if d != 64:
+        raise ValueError(f"the SDPA kernel takes head dim 64, got {d}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _kernels.require(t, name, dtype=q.dtype, device=dev,
+                         last_contiguous=True)
+    _kernels.require(k, "k", shape=(b, h, m, d))
+    _kernels.require(v, "v", shape=(b, h, m, d))
+    out = torch.empty((b, n, h, d), dtype=v.dtype, device=dev).transpose(1, 2)
+    lib = _kernels.lib()
+    strides = []
+    for t in (q, k, v, out):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    code = lib.spann3r_sdpa(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _kernels.DTYPE_CODE[q.dtype], b, h, n, m, d, *strides, float(scale),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "sdpa")
+    _kernels.LAUNCHES["sdpa"] += 1
+    return out
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return sdpa_plain(q, k, v, scale)
+    if q.device.type == "cuda":
+        return sdpa_cuda(q, k, v, scale)
+    raise NotImplementedError(f"sdpa on {q.device}")
+
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, n, c = x.shape
+    return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+class SelfAttention(nn.Module):
+    """Packed-QKV attention parameters (keys `attn.qkv`, `attn.proj`)."""
+
+    def __init__(self, dim: int, qkv_bias: bool = True):
+        super().__init__()
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+
+class CrossAttention(nn.Module):
+    """Separate q/k/v projections (keys `cross_attn.proj{q,k,v}`, `.proj`)."""
+
+    def __init__(self, dim: int, qkv_bias: bool = True):
+        super().__init__()
+        self.projq = nn.Linear(dim, dim, bias=qkv_bias)
+        self.projk = nn.Linear(dim, dim, bias=qkv_bias)
+        self.projv = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+
+def self_attention(m: SelfAttention, x: torch.Tensor,
+                   pos: Optional[torch.Tensor], num_heads: int,
+                   rope_base: float = 100.0) -> torch.Tensor:
+    """x (B, N, C); RoPE on q and k when pos is given and rope_base > 0."""
+    b, n, c = x.shape
+    head_dim = c // num_heads
+    qkv = linear(m.qkv, x).reshape(b, n, 3, num_heads, head_dim)
+    qkv = qkv.permute(2, 0, 3, 1, 4)  # (3, B, H, N, Dh) view
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    if pos is not None and rope_base > 0:
+        q = rope_2d(q, pos, rope_base)
+        k = rope_2d(k, pos, rope_base)
+    out = sdpa(q, k, v, head_dim ** -0.5)
+    return linear(m.proj, _merge_heads(out))
+
+
+def cross_attention(m: CrossAttention, query: torch.Tensor, key: torch.Tensor,
+                    value: torch.Tensor, qpos: Optional[torch.Tensor],
+                    kpos: Optional[torch.Tensor], num_heads: int,
+                    rope_base: float = 100.0) -> torch.Tensor:
+    c = query.shape[-1]
+    head_dim = c // num_heads
+    q = _split_heads(linear(m.projq, query), num_heads)
+    k = _split_heads(linear(m.projk, key), num_heads)
+    v = _split_heads(linear(m.projv, value), num_heads)
+    if qpos is not None and rope_base > 0:
+        q = rope_2d(q, qpos, rope_base)
+    if kpos is not None and rope_base > 0:
+        k = rope_2d(k, kpos, rope_base)
+    out = sdpa(q, k, v, head_dim ** -0.5)
+    return linear(m.proj, _merge_heads(out))

@@ -1,0 +1,94 @@
+"""spann3r_torch imports without JAX, contains no library attention or
+compilation calls, and its kernel wrappers dispatch by device: the plain
+version on the CPU (launch counts untouched), the CUDA kernel on a card,
+and nothing else anywhere."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from spann3r_torch.ops import _kernels
+from spann3r_torch.ops import attention, memory_read, rope
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "spann3r_torch"
+
+MODULES = [
+    "spann3r_torch", "spann3r_torch.config", "spann3r_torch.api",
+    "spann3r_torch.ops.layers", "spann3r_torch.ops._kernels",
+    "spann3r_torch.ops.rope", "spann3r_torch.ops.attention",
+    "spann3r_torch.ops.memory_read", "spann3r_torch.models.vit",
+    "spann3r_torch.models.heads", "spann3r_torch.models.dust3r",
+    "spann3r_torch.models.memory", "spann3r_torch.models.spann3r",
+    "spann3r_torch.utils.convert",
+]
+
+
+def test_imports_leave_jax_out():
+    # only modules these imports add count (a site hook may preload others)
+    code = ("import importlib, sys\n"
+            "before = set(sys.modules)\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in set(sys.modules) - before\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'spann3r_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("needle", [
+    "scaled_dot_product_attention", "torch.compile", "import jax",
+    "from jax", "import spann3r_tpu", "from spann3r_tpu", "cublas", "cudnn"])
+def test_no_library_kernels_or_jax(needle):
+    hits = [str(p.relative_to(REPO)) for p in PKG.rglob("*")
+            if p.suffix in (".py", ".cu", ".cuh")
+            and needle in p.read_text().lower()]
+    assert not hits, hits
+
+
+def test_cpu_wrappers_take_the_plain_version():
+    _kernels.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 2, 8, 64, generator=g)
+    pos = torch.randint(0, 4, (1, 8, 2), generator=g)
+    torch.testing.assert_close(rope.rope_2d(q, pos), rope.rope_2d_plain(q, pos))
+    torch.testing.assert_close(attention.sdpa(q, q, q, 0.125),
+                               attention.sdpa_plain(q, q, q, 0.125))
+    x = torch.randn(1, 8, 16, generator=g)
+    bank = torch.randn(1, 32, 16, generator=g)
+    size = torch.tensor([20], dtype=torch.int32)
+    out, asum = memory_read.memory_read_attention(x, bank, bank, size, 5e-4)
+    ref = memory_read.memory_read_attention_plain(x, bank, bank, size, 5e-4)
+    torch.testing.assert_close(out, ref[0])
+    torch.testing.assert_close(asum, ref[1])
+    assert _kernels.launch_counts() == {"rope2d": 0, "sdpa": 0,
+                                        "memory_read": 0}
+
+
+def test_other_devices_raise():
+    """No silent path: a tensor neither on the CPU nor on CUDA raises."""
+    q = torch.empty(1, 2, 8, 64, device="meta")
+    pos = torch.empty(1, 8, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError):
+        rope.rope_2d(q, pos)
+    with pytest.raises(NotImplementedError):
+        attention.sdpa(q, q, q, 0.125)
+    with pytest.raises(NotImplementedError):
+        memory_read.memory_read_attention(q[0], q[0], q[0], pos[0, 0, :1], 5e-4)
+
+
+def test_kernel_build_is_keyed_by_sources():
+    """The library name hashes the sources and flags, inside the package's
+    build directory (listed in .gitignore)."""
+    path = _kernels.library_path()
+    assert path.parent == PKG / "_build"
+    assert path.name.startswith("libspann3r_kernels_") and path.suffix == ".so"
+    assert {p.name for p in _kernels._sources()} >= {
+        "rope2d.cu", "sdpa.cu", "memory_read.cu", "common.cuh"}
+    assert "spann3r_torch/_build/" in (REPO / ".gitignore").read_text()
