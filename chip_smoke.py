@@ -10,9 +10,14 @@ Phases, each printing its results; any failure raises and exits non-zero:
   2. build   - compiles spann3r_torch/csrc/*.cu (into spann3r_torch/_build/)
                and prints the seconds it took;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
-               card, at the shapes the main path gives it, in bf16 and fp32:
-               max abs/rel error beside the tolerance, median kernel and
-               plain times from CUDA events;
+               card, at the shapes the main path gives it (K1 also with two
+               streams of unequal sizes), in bf16 and fp32: max abs/rel
+               error beside the tolerance, and planted faults that the
+               check must reject; kernel, plain and (K2 only)
+               F.scaled_dot_product_attention times, each one CUDA-event
+               pair around >= 50 back-to-back launches (>= 2 ms), the
+               median of five such loops; the least time the card could
+               take (bound_ms) from the shapes and the valid sizes;
   4. slice   - the full-width model (Spann3RConfig(), random weights from
                seed 0) at 512x384 BF16 reconstructs 24 frames through
                spann3r_torch.api.reconstruct_video (chunk 16): shapes,
@@ -25,7 +30,10 @@ the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
+import functools
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -39,21 +47,32 @@ TIMED_RUNS = 5
 HW_512 = (384, 512)
 HW_224 = (224, 224)
 
-# tolerances (max |kernel - plain| <= tol * (1 + |plain|)): fp32 RoPE is
-# elementwise (1e-5); fp32 attention sums in another order (1e-4); bf16
-# outputs carry one bf16 rounding (2e-2). The memory read with
-# attn_thresh > 0 may keep a weight that the plain version drops, or the
-# reverse, when the weight lies within rounding of the threshold. After the
-# renormalisation such a weight is attn_thresh / kept (kept: the row's mass
-# above the threshold, ~0.17 for a full bank of random scores), so each
-# flip moves an output by up to attn_thresh / kept * max|v| and a slot's
-# sum by attn_thresh / kept: that case adds 2 * attn_thresh / min(kept) *
-# max(1, max|v|) to the bound, and the run prints how many elements needed
-# it.
+# tolerances (max |kernel - plain| <= tol * (rms + |plain|), rms the root
+# mean square of the plain output over each stream or batch, so that the
+# bound follows the size of what is compared): fp32 RoPE is elementwise
+# (1e-5); fp32 attention sums in another order (1e-4); bf16 outputs carry
+# one bf16 rounding (2e-2). The memory read with attn_thresh > 0 may keep a
+# weight that the plain version drops, or the reverse, when the weight lies
+# within rounding of the threshold. After the renormalisation such a
+# weight is attn_thresh / kept (kept: the row's mass above the threshold,
+# ~0.17 for a full bank of random scores), so each flip moves an output by
+# up to attn_thresh / kept * max|v| and a slot's sum by attn_thresh / kept:
+# the rows and slots that hold a weight within 1e-4 (relative) of the
+# threshold get 2 * attn_thresh / min(kept) * max(1, max|v|) added to their
+# bound, and the run prints how many rows that is and how many elements
+# needed it. Planted faults (a key tile or a slot range left out) must fail
+# this check; the run also says whether the looser tol * (1 + |plain|)
+# bound of earlier runs would have caught them.
 TOL = {("rope2d", torch.float32): 1e-5, ("sdpa", torch.float32): 1e-4,
        ("memory_read", torch.float32): 1e-4}
 TOL_BF16 = 2e-2
 E2E_TOL = 1e-3
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
+# tensor-core rate and device-memory rate, for each kernel's bound
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12   # outside the tensor cores (the fp32 paths)
+PEAK_BYTES = 3.35e12
 
 SOURCES = {
     "rope2d": ("spann3r_torch/csrc/rope2d.cu",
@@ -73,40 +92,102 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the card, from CUDA events."""
-    for _ in range(warmup):
-        fn()
+@functools.cache
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep per millisecond on this card."""
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def cuda_ms(fn, loops: int = 5, min_launches: int = 50,
+            min_ms: float = 2.0, max_launches: int = 800) -> float:
+    """Device milliseconds per call of fn(): one CUDA-event pair around a
+    loop of back-to-back calls, divided by the count, the median of
+    `loops` such loops after a warm-up. A loop has at least `min_launches`
+    calls, more where that is needed for `min_ms`. A spin kernel queued
+    ahead of each loop holds the device while the host enqueues the loop,
+    so the calls run back to back even where enqueueing one takes longer
+    than running it."""
+    fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+
+    def timed_loop(n, spin_ms):
+        if spin_ms > 0:
+            torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms()))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / n, host_ms / n
+
+    dev_ms, host_ms = timed_loop(min_launches, 0.0)
+    n = min(max_launches, max(min_launches, int(min_ms / max(dev_ms, 1e-6)) + 1))
+    spin = 1.5 * n * host_ms + 1.0
+    return statistics.median(timed_loop(n, spin)[0] for _ in range(loops))
 
 
-def compare(name, got, want, tol, extra=0.0):
+def bound(flops: float, nbytes: float, peak_flops: float):
+    """Least time (ms) of the card for the work, and which limit binds."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare(name, got, want, tol, extra=0.0, unit_scale=False):
+    """got against want: ok where |got - want| <= tol * (scale + |want|) +
+    extra everywhere. scale is the RMS of want over each leading index (1
+    with unit_scale); extra is a float or a tensor that broadcasts against
+    want. Returns ok, max abs err, max rel err and the count of elements
+    past the bound without extra."""
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs()
-    base = tol * (1.0 + want.abs())
+    scale = 1.0 if unit_scale else want.pow(2).mean(
+        dim=tuple(range(1, want.dim())), keepdim=True).sqrt()
+    base = tol * (scale + want.abs())
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp(min=1e-6)).max())
     ok = bool((err <= base + extra).all())
     return ok, max_abs, max_rel, int((err > base).sum())
 
 
-def kept_mass(q, k, size, thr):
-    """Smallest per-query attention mass above the threshold (plain math)."""
-    s = torch.matmul(q[0, :, :].float(), k[0, :size].float().T) / q.shape[-1] ** 0.5
-    a = torch.softmax(s, dim=-1)
-    return float(torch.where(a < thr, 0.0, a).sum(-1).min())
+def plain_weights(q, k, sizes, thr):
+    """The memory read's final weights a (B, P, C), fp32, plain math, with
+    each row's kept mass and the weights within 1e-4 of the threshold."""
+    b_, p_, c_ = q.shape[0], q.shape[1], k.shape[1]
+    a = torch.zeros(b_, p_, c_, device=q.device)
+    kept, near = [], torch.zeros(b_, p_, c_, dtype=torch.bool, device=q.device)
+    for b, size in enumerate(sizes):
+        s = torch.matmul(q[b].float(), k[b, :size].float().T) / q.shape[-1] ** 0.5
+        ab = torch.softmax(s, dim=-1)
+        if thr > 0:
+            near[b, :, :size] = (ab - thr).abs() <= 1e-4 * thr
+            ab = torch.where(ab < thr, 0.0, ab)
+            kept.append(ab.sum(-1, keepdim=True))
+            ab = ab / (kept[-1] + 1e-12)
+        a[b, :, :size] = ab
+    return a, (min(float(x.min()) for x in kept) if kept else 1.0), near
+
+
+def flip_allowance(q, k, v, sizes, thr):
+    """The threshold flip term, on the rows (out) and slots (asum) that
+    hold a weight within rounding of the threshold, 0 elsewhere: (extra for
+    out, extra for asum), the term, and the count of such rows."""
+    _, kept, near = plain_weights(q, k, sizes, thr)
+    term = 2 * thr / kept * max(1.0, float(v.float().abs().max()))
+    rows = near.any(-1, keepdim=True).float()
+    return (rows * term, near.any(1).float() * term), term, int(rows.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +234,23 @@ def phase_kernels(records):
     randn = lambda *s, dtype: torch.randn(*s, generator=g, device=dev).to(dtype)
     failures = []
 
-    def case(kernel, label, dtype, run_kernel, run_plain, main, extra=0.0,
-             time_it=True):
+    def planted(label, wrong, want, tol, extra=0.0):
+        """A wrong result, planted, against the plain one: the check must
+        reject it."""
+        ok, max_abs, _, n_over = compare(label, wrong, want, tol, extra)
+        ok_unit, _, _, n_unit = compare(label, wrong, want, tol, extra,
+                                        unit_scale=True)
+        log(f"[faults] {label}: max_abs={max_abs:.3e} elements past tol "
+            f"{n_over} of {want.numel()}: {'MISSED' if ok else 'caught'}; "
+            f"the tol*(1+|plain|) bound: {n_unit}, "
+            f"{'missed' if ok_unit else 'caught'}")
+        if ok:
+            failures.append(f"planted fault not caught: {label}")
+
+    def case(kernel, label, dtype, run_kernel, run_plain, main, work,
+             extra=(), note="", time_it=True, run_library=None):
+        """work: (flops, bytes) the function needs on these inputs; extra:
+        the added bound of each output (none by default)."""
         tol = TOL.get((kernel, dtype), TOL_BF16) if dtype == torch.float32 \
             else TOL_BF16
         outs_k, outs_p = run_kernel(), run_plain()
@@ -163,27 +259,38 @@ def phase_kernels(records):
         torch.cuda.synchronize()
         ok, max_abs, max_rel, n_over = True, 0.0, 0.0, 0
         for i, (a, b) in enumerate(zip(outs_k, outs_p)):
-            o, ab, rl, no = compare(f"{kernel} {label} out{i}", a, b, tol, extra)
+            o, ab, rl, no = compare(f"{kernel} {label} out{i}", a, b, tol,
+                                    extra[i] if extra else 0.0)
             ok, max_abs, max_rel = ok and o, max(max_abs, ab), max(max_rel, rl)
             n_over += no
-        ms = cuda_ms(run_kernel) if time_it else float("nan")
-        pms = cuda_ms(run_plain) if time_it else float("nan")
+        nan = float("nan")
+        ms = cuda_ms(run_kernel) if time_it else nan
+        pms = cuda_ms(run_plain) if time_it else nan
+        lms = cuda_ms(run_library) if time_it and run_library else None
+        bms, bound_by = bound(*work, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                              else PEAK_FP32_FLOPS)
         dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        lib_s = f"{lms:.4f}" if lms is not None else "null"
         log(f"[kernels] {kernel:11s} {label:34s} {dt} max_abs={max_abs:.3e} "
-            f"max_rel={max_rel:.3e} tol={tol:g}+{extra:.2e} "
-            f"(elements past tol: {n_over}) {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} plain_ms={pms:.4f}")
+            f"max_rel={max_rel:.3e} tol={tol:g}*(rms+|plain|){note} "
+            f"(elements past tol: {n_over}) {'ok' if ok else 'FAIL'} "
+            f"kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib_s} "
+            f"bound_ms={bms:.4f} ({bound_by})")
         if not ok:
             failures.append(f"{kernel} {label} {dt}")
         if main:
             src, rep = SOURCES[kernel]
             records[kernel] = {"name": kernel, "route": "cuda", "source": src,
                                "replaces": rep, "max_abs_err": max_abs,
-                               "ms": ms, "plain_ms": pms}
+                               "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                               "bound_by": bound_by, "library_ms": lms,
+                               "shape": label}
             if kernel in ALSO_REPLACES:
                 records[kernel]["also_replaces"] = ALSO_REPLACES[kernel]
 
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
+        esize = torch.finfo(dtype).bits // 8
         # K3: encoder (B=16 frames, 16 heads) and decoder (12 heads) q/k,
         # as strided slices of a qkv projection
         for (b, h, n) in ((16, 16, 768), (1, 12, 768)):
@@ -192,42 +299,82 @@ def phase_kernels(records):
             pos = torch.stack(torch.meshgrid(torch.arange(24), torch.arange(32),
                                              indexing="ij"), -1).reshape(-1, 2)
             pos = pos[None].expand(b, -1, -1).to(dev)
+            work = (3.0 * tok.numel(),
+                    2.0 * tok.numel() * esize + pos.numel() * pos.element_size())
             case("rope2d", f"({b},{h},{n},64) strided", dtype,
                  lambda: rope.rope_2d_cuda(tok, pos, 100.0),
                  lambda: rope.rope_2d_plain(tok, pos, 100.0),
-                 main and b == 16)
+                 main and b == 16, work)
             case("rope2d", f"({b},{h},{n},64) inverse", dtype,
                  lambda: rope.rope_2d_cuda(tok.contiguous(), pos, sign=-1.0),
                  lambda: rope.rope_2d_plain(tok, pos, sign=-1.0), False,
-                 time_it=False)
-        # K2: encoder self-attention, decoder cross-attention, 224 ragged
-        for (b, h, n, m, label) in ((16, 16, 768, 768, "self"),
-                                    (1, 12, 768, 768, "cross"),
+                 work, time_it=False)
+        # K2: q, k, v as strided slices of a qkv projection (the decoder's
+        # cross-attention reads them the same way): encoder self-attention
+        # (16 frames), decoder self and cross (12 heads), value encoder
+        # (16 heads), and ragged 224x224 shapes
+        for (b, h, n, m, label) in ((16, 16, 768, 768, "encoder"),
+                                    (1, 12, 768, 768, "decoder"),
+                                    (1, 16, 768, 768, "value encoder"),
                                     (1, 16, 196, 196, "self N=196"),
                                     (1, 12, 196, 300, "cross N!=M")):
-            q = randn(b, h, n, 64, dtype=dtype)
-            k = randn(b, h, m, 64, dtype=dtype)
-            v = randn(b, h, m, 64, dtype=dtype)
+            q = randn(b, n, 3, h, 64, dtype=dtype).permute(2, 0, 3, 1, 4)[0]
+            kv = randn(b, m, 3, h, 64, dtype=dtype).permute(2, 0, 3, 1, 4)
+            k, v = kv[1], kv[2]
+            work = (4.0 * b * h * n * m * 64, esize * 2.0 * b * h * (n + m) * 64)
             case("sdpa", f"{label} ({b},{h},{n},{m})", dtype,
                  lambda: attention.sdpa_cuda(q, k, v, 0.125),
                  lambda: attention.sdpa_plain(q, k, v, 0.125),
-                 main and b == 16)
-        # K1: 512x384 bank (P=768, C=8704, D=1024)
+                 main and b == 16, work,
+                 run_library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, scale=0.125))
+            if dtype == torch.bfloat16 and label in ("encoder", "decoder"):
+                # planted fault: the PV of the last key tile left out
+                p = torch.softmax(torch.matmul(q.float(), k.float().transpose(
+                    -1, -2)) * 0.125, dim=-1).to(dtype).float()
+                p[..., -64:] = 0.0
+                planted(f"sdpa {label} ({b},{h},{n},{m}) without its last "
+                        f"key tile", torch.matmul(p, v.float()).to(dtype),
+                        attention.sdpa_plain(q, k, v, 0.125), TOL_BF16)
+        # K1: 512x384 bank (P=768, C=8704, D=1024), one stream at the
+        # sizes the slice reads, then two streams of unequal sizes
         p_, c_, d_ = 768, 8704, 1024
-        q = randn(1, p_, d_, dtype=dtype)
-        k = randn(1, c_, d_, dtype=dtype)
-        v = randn(1, c_, d_, dtype=dtype)
-        vmax = max(1.0, float(v.float().abs().max()))
-        for size in (768, 4000, 8704):
-            sz = torch.tensor([size], dtype=torch.int32, device=dev)
+        banks = {nb: (randn(nb, p_, d_, dtype=dtype), randn(nb, c_, d_, dtype=dtype),
+                      randn(nb, c_, d_, dtype=dtype)) for nb in (1, 2)}
+        for sizes in ((768,), (4000,), (8704,), (768, 8704)):
+            nb = len(sizes)
+            q, k, v = banks[nb]
+            sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+            work = (4.0 * p_ * sum(sizes) * d_,
+                    esize * (2.0 * nb * p_ * d_ + 2.0 * sum(sizes) * d_)
+                    + 4.0 * nb * c_)
+            label = ("size=" + "+".join(map(str, sizes))
+                     + (f" B={nb}" if nb > 1 else ""))
             for thr in (5e-4, 0.0):
-                extra = 0.0
+                extra, note = (), ""
                 if thr > 0:
-                    extra = 2 * thr / kept_mass(q, k, size, thr) * vmax
-                case("memory_read", f"size={size} thresh={thr:g}", dtype,
+                    extra, term, rows = flip_allowance(q, k, v, sizes, thr)
+                    note = f" + {term:.2e} on {rows} rows"
+                case("memory_read", f"{label} thresh={thr:g}", dtype,
                      lambda: memory_read.memory_read_attention_cuda(q, k, v, sz, thr),
                      lambda: memory_read.memory_read_attention_plain(q, k, v, sz, thr),
-                     main and size == 8704 and thr > 0, extra=extra)
+                     main and sizes == (8704,) and thr > 0, work, extra=extra,
+                     note=note)
+                if dtype == torch.bfloat16 and sizes == (8704,):
+                    # planted faults: the first of the readout's four slot
+                    # ranges left out (whole 64-slot tiles, as the kernel
+                    # splits them), and the last 64-slot tile left out
+                    want = memory_read.memory_read_attention_plain(
+                        q, k, v, sz, thr)[0]
+                    for what, cut in (("first slot range",
+                                       slice(0, 64 * ((c_ // 64 + 3) // 4))),
+                                      ("last slot tile", slice(c_ - 64, c_))):
+                        a = plain_weights(q, k, sizes, thr)[0]
+                        a[..., cut] = 0.0
+                        planted(f"memory_read size=8704 thresh={thr:g} "
+                                f"without its {what}",
+                                torch.matmul(a, v.float()).to(dtype), want,
+                                TOL_BF16, extra[0] if extra else 0.0)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -251,7 +398,7 @@ def make_frames(t, hw, seed=SEED):
     return out
 
 
-def phase_slice(records, card):
+def phase_slice(records, card, profile_out=None):
     from spann3r_torch import api, config
     from spann3r_torch.models import memory as mem_mod
     from spann3r_torch.models import spann3r as sp
@@ -326,7 +473,14 @@ def phase_slice(records, card):
         f"lm after prunes follows long_mem_size - wm*P = "
         f"{mcfg.long_mem_size - reads['wm'] * p_tokens} (+k*P)")
     for name in _kernels.KERNELS:
-        records[name]["launches"] = counts[name]
+        rec = records[name]
+        rec["launches"] = rec["launches_per_run"] = counts[name]
+        lib_s = f"{rec['library_ms']:.4f}" if rec["library_ms"] is not None \
+            else "null"
+        log(f"[kernels] {name:11s} record {rec['shape']}: kernel_ms="
+            f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} library_ms={lib_s}"
+            f" bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+            f"launches_per_run={counts[name]}")
 
     # timed runs after the first; the host loop sets the pace, so single
     # runs vary by tens of percent: report every run and the median
@@ -340,8 +494,61 @@ def phase_slice(records, card):
     log(f"[slice] 512x384 BF16 {FRAMES_512} frames: median "
         f"{statistics.median(fps):.3f} FPS over {TIMED_RUNS} runs "
         f"{[round(f, 3) for f in fps]} on {card}")
+    if profile_out:
+        profile_slice(lambda: api.reconstruct_video(model, cfg, frames,
+                                                    config.BF16, chunk=16),
+                      FRAMES_512 / statistics.median(fps) * 1e3, card,
+                      profile_out)
     del model
     torch.cuda.empty_cache()
+
+
+def profile_slice(run, wall_ms, card, out):
+    """One run under torch.profiler: device time and launches by kernel
+    name, and the union of the device intervals against the profiled run's
+    wall and against `wall_ms`, the unprofiled median wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch_profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    spans = []
+    for e in dev_events:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    busy_ms = busy_us / 1e3
+    lines = [f"profile of one 512x384 BF16 {FRAMES_512}-frame run on {card}",
+             f"device events {len(dev_events)}, busy (union) {busy_ms:.3f} ms,"
+             f" profiled wall {prof_wall_ms:.3f} ms (busy "
+             f"{busy_ms / prof_wall_ms:.3f}), unprofiled median wall "
+             f"{wall_ms:.3f} ms (busy {busy_ms / wall_ms:.3f}, idle "
+             f"{1 - busy_ms / wall_ms:.3f})", "ms\tlaunches\tkernel"]
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        lines.append(f"{tot / 1e3:.3f}\t{cnt}\t{name}")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for ln in lines[:2] + lines[3:28]:
+        log(f"[profile] {ln[:200]}")
 
 
 # ---------------------------------------------------------------------------
@@ -377,11 +584,16 @@ def phase_parity():
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", metavar="FILE",
+                    help="profile one more slice run with torch.profiler "
+                         "and write the summary to FILE")
+    args = ap.parse_args()
     card = phase_card()
     phase_build()
     records = {}
     phase_kernels(records)
-    phase_slice(records, card)
+    phase_slice(records, card, args.profile)
     phase_parity()
     print(json.dumps({"kernels": [records[k] for k in ("rope2d", "sdpa",
                                                        "memory_read")]}))

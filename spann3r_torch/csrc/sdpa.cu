@@ -7,41 +7,51 @@
 // written in v's dtype.
 //
 // What bounds it on the card: at the slice's shapes (N = M = 768, Dh = 64)
-// attention does ~4*N*M*Dh flops per head against ~4*(N+M)*Dh bytes, i.e.
-// it is compute-bound in principle; this first version never writes the
-// N x M score matrix to device memory, and it is limited by shared-memory
-// traffic (scores and probabilities pass through shared memory) and the
-// exp/divide work per score rather than by tensor-core throughput. A flash
-// kernel's online softmax rescales *unnormalised* partial PV sums, which
-// rounds differently from "normalise, round to v's dtype, then PV"; to
-// match that exactly the kernel takes two sweeps over the keys: the first
-// gets each row's max and sum-exp (online), the second forms p / z, rounds
-// it to v's dtype and accumulates PV. The price is computing q k^T twice.
-// wgmma/TMA pipelines and keeping scores in registers are later work.
+// attention does 4*N*M*Dh flops per head against 2*(N+M)*Dh*2 bytes, so
+// it is bound by the tensor cores at full occupancy; the one-frame calls
+// (decoder, value encoder: 12 or 16 heads) make too few blocks to fill
+// the card and are bound by each block's serial chain of key tiles. A
+// flash kernel's online softmax rescales *unnormalised* partial PV sums,
+// which rounds differently from "normalise, round to v's dtype, then PV";
+// to keep the reference's order the kernel takes two sweeps over the keys: the
+// first gets each row's max and sum-exp (online), the second forms p / z,
+// rounds it to v's dtype and accumulates PV. The price is computing q k^T
+// twice.
 //
 // Two paths, one per dtype, with the same two sweeps and the same rounding
 // of p to v's dtype:
-//   - bf16 (the serving path): tensor cores through the warp-level WMMA API
-//     (16x16x16 bf16 products, fp32 accumulators). One block of 4 warps per
-//     (batch*head, 64-row query tile); each warp owns 16 query rows. Keys
-//     and values go in 64-row tiles through shared memory; each warp writes
-//     its 16 x 64 score tile to shared memory, where pairs of lanes take a
-//     row each for the softmax statistics and the rounded probabilities,
-//     which feed the PV product from shared memory.
-//   - fp32: the CUDA cores (WMMA would round fp32 inputs to tf32). One block
-//     per (batch*head, 64-row query tile), 256 threads as a 16 x 16 grid;
-//     thread (ty, tx) owns query rows ty + 16a (a < 4); keys go in tiles of
-//     32 through shared memory (rows padded against bank conflicts).
-//     Measured on the card, this path is bound by shared-memory loads, not
-//     by occupancy: a 16-row layout with four times the blocks ran the
-//     one-frame decoder shape (12 heads) in the same time.
+//   - bf16 (the serving path): Hopper's warpgroup tensor-core products
+//     (wgmma, sm_90a). q k^T and PV run as m64n64k16 wgmma with fp32
+//     accumulators in registers; the softmax statistics and p never leave
+//     the registers (p becomes the A operand of the PV wgmma directly). K
+//     and V tiles arrive by 16-byte cp.async into a two-stage ring of
+//     128-byte-swizzled tiles, so the copy of the next tile overlaps the
+//     math on this one. cp.async rather than TMA: q, k and v are strided
+//     views of the projections (row stride 3C or C), and cp.async reads
+//     them through the strides the wrapper passes, with no tensor map to
+//     encode and cache on the host per pointer and stride. One warpgroup
+//     per block of 64 query rows: the one-frame grids (12 or 16 heads x
+//     12 row tiles) give each of the 132 SMs about one block; splitting a
+//     block's key tiles over two warpgroups gained 2% there (PERF.md) and
+//     was dropped. p = exp(s - max) / sum is formed as exp2f of the
+//     logits in log2 units times 1 / sum: its fp32 value may differ from
+//     expf(s - max) / sum in the last bits, and so the bf16 p from the
+//     reference's by up to one bf16 ulp where it lies next to a rounding
+//     boundary. expf and a true divide made the kernel 1.6-1.9x slower
+//     (PERF.md).
+//   - fp32: the CUDA cores (the tensor cores would round fp32 inputs to
+//     tf32). One block per (batch*head, 64-row query tile), 256 threads as
+//     a 16 x 16 grid; thread (ty, tx) owns query rows ty + 16a (a < 4);
+//     keys go in tiles of 32 through shared memory (rows padded against
+//     bank conflicts). This path serves only the fp32 parity runs.
 // Any N and M >= 1 (ragged edges are masked); every operand is read through
 // its batch, head and row strides with unit stride in Dh.
 
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace spann3r {
 namespace {
@@ -205,171 +215,157 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --- bf16 tensor-core path -------------------------------------------------
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
+// --- bf16 path: wgmma tensor cores ---------------------------------------
+using hopper::bf16;
+constexpr int KT = 64;          // keys per tile
+constexpr int STAGES = 2;       // cp.async ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+// 1024 bytes of slack to align the tiles, the q tile, then a ring of (K, V)
+// tile pairs
+constexpr size_t kWgmmaSmem = 1024 + hopper::kTileBytes * (1 + 2 * STAGES);
 
-constexpr int WT = 128;        // threads (4 warps)
-constexpr int WQ = 64;         // query rows per block, 16 per warp
-constexpr int WKT = 64;        // keys per tile
-constexpr int BLD = DH + 8;    // bf16 row stride in shared memory (elements)
-constexpr int FLD = WKT + 4;   // fp32 score row stride (elements)
-constexpr size_t kWmmaSmem =
-    sizeof(bf16) * (3 * 64 * BLD + 4 * 16 * BLD) + sizeof(float) * 4 * 16 * FLD;
+// One warpgroup per block owns 64 query rows of one (batch, head) and
+// sweeps the key tiles twice through its cp.async ring (the copy of the
+// next tile runs during the math on this one). Sweep 1: S = q k^T on wgmma
+// into registers; each row's max and sum-exp stay in registers (the 4
+// lanes that share a row combine by shuffles). Sweep 2: S again; p =
+// exp(s - max) / sum (as exp2f of the logits in log2 units, times 1 / sum),
+// rounded to bf16 in registers, is repacked from the
+// accumulator layout into the A fragment of the PV wgmma (A from
+// registers, V from shared memory), O in fp32 registers.
+__global__ void __launch_bounds__(128)
+sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                  int N, int M, Strides qs_, Strides ks_, Strides vs_,
+                  Strides os_, float scale, bool vq, bool vk, bool vv) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qsm = align1024(smem_raw);
+  unsigned char* ring = qsm + kTileBytes;
 
-// 64 rows into shared memory; 16-byte loads when the rows are 16-byte
-// aligned (`vec`), element loads otherwise
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               long long sn, int row0,
-                                               int limit, bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < 64 * (DH / 8); e += WT) {
-      const int r = e / (DH / 8), d = (e % (DH / 8)) * 8;
-      const int gr = row0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < limit) val = *reinterpret_cast<const uint4*>(src + gr * sn + d);
-      *reinterpret_cast<uint4*>(dst + r * BLD + d) = val;
+  const int t = threadIdx.x & 127;   // < 128: the tile loops unroll fully
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * 64;
+  const bf16* qb = q + b * qs_.b + h * qs_.h;
+  const bf16* kb = k + b * ks_.b + h * ks_.h;
+  const bf16* vb = v + b * vs_.b + h * vs_.h;
+  bf16* ob = o + b * os_.b + h * os_.h;
+  const float sl2 = scale * kLog2e;   // logits in log2 units
+
+  const int ntiles = (M + KT - 1) / KT;
+  const int steps = 2 * ntiles;   // sweep 1: K tiles; sweep 2: K and V tiles
+  auto first_key = [&](int j) { return (j < ntiles ? j : j - ntiles) * KT; };
+  auto prefetch = [&](int j) {
+    if (j < steps) {
+      unsigned char* st = ring + (j % STAGES) * 2 * kTileBytes;
+      load_tile(st, kb, ks_.n, first_key(j), M, vk, t, 128);
+      if (j >= ntiles)
+        load_tile(st + kTileBytes, vb, vs_.n, first_key(j), M, vv, t, 128);
     }
-    return;
+    cp_async_commit();
+  };
+
+  load_tile(qsm, qb, qs_.n, q0, N, vq, t, 128);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) prefetch(j);
+  cp_async_wait<STAGES - 1>();   // the q tile
+  fence_async_smem();
+  __syncthreads();
+
+  // this thread's rows: r0 (accumulator elements with (i / 2) % 2 == 0)
+  // and r0 + 8
+  const int r0 = acc_row(t, 0);
+  float m_run[2] = {-INFINITY, -INFINITY}, z_run[2] = {0.f, 0.f};
+  float s[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  // S = (q k^T) * scale * log2(e) for step j, masked to -inf past M
+  auto scores = [&](int j) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_smem();
+    __syncthreads();
+    prefetch(j + STAGES - 1);
+    const unsigned char* st = ring + (j % STAGES) * 2 * kTileBytes;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0>(s, desc(qsm, kk * 32), desc(st, kk * 32), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    const int k0 = first_key(j);
+    const bool ragged = k0 + KT > M;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] *= sl2;
+      if (ragged && k0 + acc_col(t, i) >= M) s[i] = -INFINITY;
+    }
+    return st;
+  };
+
+  for (int j = 0; j < ntiles; ++j) {   // sweep 1: online max and sum-exp
+    scores(j);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (((i >> 1) & 1) == hr) mx = fmaxf(mx, s[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hr], mx);
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (((i >> 1) & 1) == hr) part += exp2f(s[i] - m_new);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      z_run[hr] = z_run[hr] * exp2f(m_run[hr] - m_new) + part;
+      m_run[hr] = m_new;
+    }
   }
-  for (int e = threadIdx.x; e < 64 * DH; e += WT) {
-    const int r = e / DH, d = e % DH;
-    const int gr = row0 + r;
-    dst[r * BLD + d] = gr < limit ? src[gr * sn + d] : __float2bfloat16_rn(0.f);
+
+  const float inv_z[2] = {1.f / z_run[0], 1.f / z_run[1]};
+  for (int j = ntiles; j < steps; ++j) {   // sweep 2: p rounded to bf16, PV
+    const unsigned char* st = scores(j);
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, hr = r & 1;
+        pa[kk][r] = pack_bf16(exp2f(s[i] - m_run[hr]) * inv_z[hr],
+                              exp2f(s[i + 1] - m_run[hr]) * inv_z[hr]);
+      }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(acc, pa[kk], desc(st + kTileBytes, kk * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 32; i += 4) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + r0 + 8 * hr;
+      if (row < N)
+        *reinterpret_cast<uint32_t*>(ob + row * os_.n + acc_col(t, i)) =
+            pack_bf16(acc[i + 2 * hr], acc[i + 2 * hr + 1]);
+    }
   }
 }
 
 __host__ __device__ inline bool rows_aligned16(const void* p, Strides st) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0 && st.b % 8 == 0 &&
          st.h % 8 == 0 && st.n % 8 == 0;
-}
-
-// this warp's 16 x 64 score tile q k^T (unscaled) into shared memory
-__device__ __forceinline__ void warp_scores(
-    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>* qf,
-    const bf16* ks, float* sw) {
-#pragma unroll
-  for (int n = 0; n < WKT / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-    wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, ks + n * 16 * BLD + kk * 16, BLD);
-      wmma::mma_sync(sf, qf[kk], kf, sf);
-    }
-    wmma::store_matrix_sync(sw + n * 16, sf, FLD, wmma::mem_row_major);
-  }
-}
-
-__global__ void __launch_bounds__(WT)
-sdpa_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                 int N, int M, Strides qs_, Strides ks_, Strides vs_,
-                 Strides os_, float scale, bool vq, bool vk, bool vv) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qsm = reinterpret_cast<bf16*>(smem);          // [64][BLD]
-  bf16* ksm = qsm + 64 * BLD;                          // [64][BLD]
-  bf16* vsm = ksm + 64 * BLD;                          // [64][BLD]
-  bf16* psm = vsm + 64 * BLD;                          // [4][16][BLD]
-  float* ssm = reinterpret_cast<float*>(psm + 4 * 16 * BLD);  // [4][16][FLD]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * WQ;
-  const bf16* qb = q + b * qs_.b + h * qs_.h;
-  const bf16* kb = k + b * ks_.b + h * ks_.h;
-  const bf16* vb = v + b * vs_.b + h * vs_.h;
-  bf16* ob = o + b * os_.b + h * os_.h;
-  float* sw = ssm + warp * 16 * FLD;
-  bf16* pw = psm + warp * 16 * BLD;
-  // lanes 2r and 2r+1 share row r of the warp's tile, taking alternate
-  // columns (c = 2i + c0) so that the pair hits different banks
-  const int row = lane >> 1, c0 = lane & 1;
-
-  load_tile_bf16(qsm, qb, qs_.n, q0, N, vq);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], qsm + warp * 16 * BLD + kk * 16, BLD);
-
-  const int ntiles = (M + WKT - 1) / WKT;
-
-  // sweep 1: online row max and sum-exp
-  float m_run = -INFINITY, z_run = 0.f;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * WKT;
-    __syncthreads();
-    load_tile_bf16(ksm, kb, ks_.n, k0, M, vk);
-    __syncthreads();
-    warp_scores(qf, ksm, sw);
-    __syncwarp();
-    float s[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = 2 * c + c0;
-      s[c] = k0 + col < M ? sw[row * FLD + col] * scale : -INFINITY;
-      mx = fmaxf(mx, s[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) part += expf(s[c] - m_new);
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    z_run = z_run * expf(m_run - m_new) + part;
-    m_run = m_new;
-    __syncwarp();
-  }
-
-  // sweep 2: p / z rounded to bf16, times v
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DH / 16];
-#pragma unroll
-  for (int nb = 0; nb < DH / 16; ++nb) wmma::fill_fragment(acc[nb], 0.f);
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * WKT;
-    __syncthreads();
-    load_tile_bf16(ksm, kb, ks_.n, k0, M, vk);
-    load_tile_bf16(vsm, vb, vs_.n, k0, M, vv);
-    __syncthreads();
-    warp_scores(qf, ksm, sw);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = 2 * c + c0;
-      const float sc = sw[row * FLD + col] * scale;
-      const float p = k0 + col < M ? expf(sc - m_run) / z_run : 0.f;
-      pw[row * BLD + col] = __float2bfloat16_rn(p);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < WKT / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, pw + kk * 16, BLD);
-#pragma unroll
-      for (int nb = 0; nb < DH / 16; ++nb) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, vsm + kk * 16 * BLD + nb * 16, BLD);
-        wmma::mma_sync(acc[nb], pf, vf, acc[nb]);
-      }
-    }
-  }
-
-  __syncwarp();
-#pragma unroll
-  for (int nb = 0; nb < DH / 16; ++nb)
-    wmma::store_matrix_sync(sw + nb * 16, acc[nb], FLD, wmma::mem_row_major);
-  __syncwarp();
-  const int r = q0 + warp * 16 + row;
-  if (r < N) {
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = 2 * c + c0;
-      ob[r * os_.n + col] = __float2bfloat16_rn(sw[row * FLD + col]);
-    }
-  }
 }
 
 void launch_f32(const void* q, const void* k, const void* v, void* o, int B,
@@ -387,11 +383,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         Strides sv, Strides so, float scale,
                         cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      sdpa_wmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kWmmaSmem);
+      sdpa_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kWgmmaSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + WQ - 1) / WQ, B * H);
-  sdpa_wmma_kernel<<<grid, WT, kWmmaSmem, stream>>>(
+  dim3 grid((N + 63) / 64, B * H);
+  sdpa_wgmma_kernel<<<grid, 128, kWgmmaSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, N, M, sq, sk, sv,
       so, scale, rows_aligned16(q, sq), rows_aligned16(k, sk),
@@ -420,8 +416,8 @@ extern "C" int spann3r_sdpa(const void* q, const void* k, const void* v,
   if (dtype == kFloat32) {
     launch_f32(q, k, v, out, B, H, N, M, sq, sk, sv, so, scale, s);
   } else if (dtype == kBFloat16) {
-    const cudaError_t err =
-        launch_bf16(q, k, v, out, B, H, N, M, sq, sk, sv, so, scale, s);
+    const cudaError_t err = launch_bf16(q, k, v, out, B, H, N, M, sq, sk, sv,
+                                        so, scale, s);
     if (err != cudaSuccess) return (int)err;
   } else {
     return (int)cudaErrorInvalidValue;

@@ -68,11 +68,16 @@ def _attn_head(cfg: Spann3RConfig) -> nn.Sequential:
                          nn.Linear(cfg.attn_head_in, cfg.attn_head_out))
 
 
-def build_spann3r(cfg: Spann3RConfig, device=None,
+def build_spann3r(cfg: Spann3RConfig, device="cuda",
                   generator: Optional[torch.Generator] = None) -> Spann3R:
-    """A randomly initialised model on `device`. The init draws from
-    `generator` on the CPU, so one seed gives the same weights on every
-    device."""
+    """A randomly initialised model on `device`, the card unless the caller
+    asks for the CPU (`device="cpu"`); raises when a CUDA device is asked
+    for and none is present. The init draws from `generator` on the CPU,
+    so one seed gives the same weights on every device."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_spann3r: no CUDA device is available; pass "
+                           "device='cpu' to build the model on the CPU")
     with torch.device("meta"):
         model = Spann3R(cfg)
     model = model.to_empty(device="cpu")

@@ -1,9 +1,10 @@
 """Build, binding and launch counts of the port's CUDA kernels.
 
 The kernels live in `spann3r_torch/csrc/*.cu`, each behind a plain C entry
-point. At the first CUDA use, `nvcc` compiles all of them into one shared
-library under `spann3r_torch/_build/`, named by a hash of the sources and
-flags so that an edited source is rebuilt; `ctypes` loads it. Pointers and
+point. At the first CUDA use, one `nvcc` per source compiles them all at
+once, and one more links the objects into a shared library under
+`spann3r_torch/_build/`, named by a hash of the sources and flags so that
+an edited source is rebuilt; `ctypes` loads it. Pointers and
 the stream pass as `c_void_p`. Every entry point launches on the stream it
 is given (PyTorch's current stream), allocates nothing, does not
 synchronise, and returns `cudaGetLastError()`; `check` raises on a
@@ -31,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 KERNELS = ("rope2d", "sdpa", "memory_read")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -51,11 +52,14 @@ _SIGNATURES = {
     # q, k, v, out, dtype, B, H, N, M, D, 4 x (sb, sh, sn), scale, stream
     "spann3r_sdpa": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32]
                     + [_i64] * 12 + [_f32, _vp],
-    # q, k, v, size, out, asum, scores, dtype, P, C, D, scale, attn_thresh,
-    # stream
+    # q, k, v, size, out, asum, workspace, dtype, B, P, C, D, scale,
+    # attn_thresh, stream
     "spann3r_memory_read": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32,
-                            _i32, _i32, _f32, _f32, _vp],
+                            _i32, _i32, _i32, _f32, _f32, _vp],
+    # dtype, B, P, C, D -> workspace bytes
+    "spann3r_memory_read_workspace": [_i32, _i32, _i32, _i32, _i32],
 }
+_RESTYPES = {"spann3r_memory_read_workspace": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -97,20 +101,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the build directory unless the library for
-    these sources exists already. Raises with nvcc's output on failure."""
+    these sources exists already: the sources in parallel, then one link.
+    Raises with nvcc's output on failure."""
     global build_seconds
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(str(obj))
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{out}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so
@@ -125,7 +148,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
 

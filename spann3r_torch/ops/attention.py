@@ -4,7 +4,8 @@
 normalised probabilities cast to v's dtype, and PV accumulated in fp32
 (the JAX package's numerics). It dispatches on the device of its inputs:
 a CPU tensor takes the plain PyTorch version, a CUDA tensor the CUDA
-kernel (`csrc/sdpa.cu`, head dim 64), which reads q/k/v through their
+kernel (`csrc/sdpa.cu`, head dim 64; bf16 on the tensor cores through
+wgmma), which reads q/k/v through their
 strides and writes its output in the layout that merging the heads back
 needs, so neither side copies.
 """

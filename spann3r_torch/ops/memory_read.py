@@ -11,8 +11,8 @@ with `size` valid slots per stream:
 
 The attention weights stay fp32 through the readout, as in the fused TPU
 kernel. `memory_read_attention` dispatches on the device of q: a CPU
-tensor takes the plain PyTorch version (any B), a CUDA tensor the CUDA
-kernel (`csrc/memory_read.cu`), which serves one stream (B = 1).
+tensor takes the plain PyTorch version, a CUDA tensor the CUDA kernel
+(`csrc/memory_read.cu`); both take any number B of streams.
 """
 from __future__ import annotations
 
@@ -47,29 +47,28 @@ def memory_read_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, size: torch.Tensor,
                                attn_thresh: float
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel: q (1, P, D), k/v (1, C, D) of one dtype, size (1,)
-    int32 on the device."""
+    """The CUDA kernel: q (B, P, D), k/v (B, C, D) of one dtype, contiguous,
+    size (B,) int32 on the device (read there, never by the host)."""
     b, p, d = q.shape
     c = k.shape[1]
-    if b != 1:
-        raise NotImplementedError(
-            "the memory-read kernel serves one stream (B=1); B>1 streams "
-            "are ROADMAP queue A item 'B>1 streams through K1'")
     dev = q.device
-    for t, name, shape in ((q, "q", (1, p, d)), (k, "k", (1, c, d)),
-                           (v, "v", (1, c, d))):
+    for t, name, shape in ((q, "q", (b, p, d)), (k, "k", (b, c, d)),
+                           (v, "v", (b, c, d))):
         _kernels.require(t, name, dtype=q.dtype, device=dev, shape=shape,
                          contiguous=True)
-    _kernels.require(size, "size", dtype=torch.int32, device=dev, shape=(1,))
-    out = torch.empty((1, p, d), dtype=q.dtype, device=dev)
-    asum = torch.empty((1, c), dtype=torch.float32, device=dev)
-    scores = torch.empty((p, c), dtype=torch.float32, device=dev)
+    _kernels.require(size, "size", dtype=torch.int32, device=dev, shape=(b,),
+                     contiguous=True)
     lib = _kernels.lib()
+    dtype = _kernels.DTYPE_CODE[q.dtype]
+    out = torch.empty((b, p, d), dtype=q.dtype, device=dev)
+    asum = torch.empty((b, c), dtype=torch.float32, device=dev)
+    workspace = torch.empty(
+        lib.spann3r_memory_read_workspace(dtype, b, p, c, d),
+        dtype=torch.uint8, device=dev)
     code = lib.spann3r_memory_read(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), size.data_ptr(),
-        out.data_ptr(), asum.data_ptr(), scores.data_ptr(),
-        _kernels.DTYPE_CODE[q.dtype], p, c, d, 1.0 / math.sqrt(d),
-        float(attn_thresh), _kernels.stream_ptr(dev))
+        out.data_ptr(), asum.data_ptr(), workspace.data_ptr(), dtype, b, p, c,
+        d, 1.0 / math.sqrt(d), float(attn_thresh), _kernels.stream_ptr(dev))
     _kernels.check(code, "memory_read")
     _kernels.LAUNCHES["memory_read"] += 1
     return out, asum

@@ -1,0 +1,84 @@
+"""The checks of chip_smoke.py, on the CPU at small shapes: the bound that
+holds each kernel against its plain version passes a result that differs
+by one bf16 rounding and rejects the planted faults the script runs on the
+card; the script refuses to run without a card."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+from spann3r_torch.ops import attention, memory_read  # noqa: E402
+
+
+def _randn(*shape, seed):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+
+
+def test_bound_passes_one_bf16_rounding():
+    want = _randn(2, 64, 128, seed=0) * 0.05
+    ok, max_abs, _, n_over = chip_smoke.compare(
+        "x", want.to(torch.bfloat16), want, chip_smoke.TOL_BF16)
+    assert ok and n_over == 0 and 0 < max_abs < 1e-3
+
+
+def test_bound_rejects_a_missing_key_tile():
+    q, k, v = (_randn(1, 2, 128, 64, seed=s).to(torch.bfloat16)
+               for s in (1, 2, 3))
+    want = attention.sdpa_plain(q, k, v, 0.125)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                      * 0.125, dim=-1).to(torch.bfloat16).float()
+    assert chip_smoke.compare("sdpa", want, want, chip_smoke.TOL_BF16)[0]
+    p[..., -64:] = 0.0
+    wrong = torch.matmul(p, v.float()).to(torch.bfloat16)
+    assert not chip_smoke.compare("sdpa", wrong, want, chip_smoke.TOL_BF16)[0]
+
+
+@pytest.mark.parametrize("thr", [0.0, 5e-3])
+def test_bound_rejects_a_missing_slot_range(thr):
+    q, k, v = (_randn(1, n, 64, seed=s).to(torch.bfloat16)
+               for s, n in ((4, 48), (5, 256), (6, 256)))
+    sizes = (256,)
+    size = torch.tensor(sizes, dtype=torch.int32)
+    want = memory_read.memory_read_attention_plain(q, k, v, size, thr)
+    extra = (0.0, 0.0)
+    if thr > 0:
+        extra, term, rows = chip_smoke.flip_allowance(q, k, v, sizes, thr)
+        assert term > 0 and 0 <= rows < q.shape[1]
+    for got, ref, ex in zip(want, want, extra):
+        assert chip_smoke.compare("mem", got, ref, chip_smoke.TOL_BF16, ex)[0]
+    a, _, _ = chip_smoke.plain_weights(q, k, sizes, thr)
+    torch.testing.assert_close(torch.matmul(a, v.float()).to(q.dtype), want[0])
+    torch.testing.assert_close(a.sum(-2), want[1])
+    a[..., :64] = 0.0
+    wrong = torch.matmul(a, v.float()).to(q.dtype)
+    assert not chip_smoke.compare("mem", wrong, want[0], chip_smoke.TOL_BF16,
+                                  extra[0])[0]
+
+
+def test_flip_allowance_covers_only_rows_near_the_threshold():
+    q, k, v = (_randn(2, n, 32, seed=s) for s, n in ((7, 40), (8, 96), (9, 96)))
+    thr = 1.0 / 96
+    (ex_out, ex_asum), term, rows = chip_smoke.flip_allowance(
+        q, k, v, (96, 50), thr)
+    assert ex_out.shape == (2, 40, 1) and ex_asum.shape == (2, 96)
+    assert set(ex_out.unique().tolist()) <= {0.0, term}
+    assert rows == int((ex_out > 0).sum())
+    assert not ex_asum[1, 50:].any()   # no weight past a stream's size
+
+
+def test_script_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, alone)):
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

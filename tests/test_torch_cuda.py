@@ -50,7 +50,9 @@ def test_rope_kernel(dev, dt, sign):
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("b,h,n,m", [(2, 3, 20, 20), (1, 4, 70, 33),
                                      (1, 2, 196, 196),
-                                     (32, 32, 65, 40)])   # 4-row layout
+                                     (32, 32, 65, 40),    # 4-row layout
+                                     (1, 12, 768, 768),   # decoder
+                                     (1, 16, 768, 768)])  # value encoder
 def test_sdpa_kernel(dev, dt, b, h, n, m):
     dtype, tol = DTYPES[dt]
     q = _randn((b, h, n, 64), dtype, dev, 1)
@@ -59,6 +61,18 @@ def test_sdpa_kernel(dev, dt, b, h, n, m):
     out = attention.sdpa(q, k, v, 0.125)
     _assert_close(out, attention.sdpa_plain(q, k, v, 0.125),
                   max(tol, 1e-4) if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("b,h,n,m", [(1, 3, 100, 300), (2, 2, 64, 130),
+                                     (1, 12, 768, 768)])
+def test_sdpa_kernel_strided(dev, b, h, n, m):
+    """q/k/v as strided slices of a packed qkv projection (row stride
+    3 * H * Dh), ragged key tiles included."""
+    qkv = _randn((b, max(n, m), 3, h, 64), torch.bfloat16, dev, 10)
+    qkv = qkv.permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0, :, :, :n], qkv[1, :, :, :m], qkv[2, :, :, :m]
+    out = attention.sdpa_cuda(q, k, v, 0.125)
+    _assert_close(out, attention.sdpa_plain(q, k, v, 0.125), 2e-2)
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
@@ -80,11 +94,24 @@ def test_memory_read_kernel(dev, dt, size, attn_thresh, p, c, d):
     _assert_close(asum, ref_asum, max(tol, 1e-4))
 
 
-def test_memory_read_kernel_is_single_stream(dev):
-    q = _randn((2, 16, 64), torch.float32, dev, 7)
-    with pytest.raises(NotImplementedError, match="B>1"):
-        memory_read.memory_read_attention(
-            q, q, q, torch.tensor([4, 4], dtype=torch.int32, device=dev), 5e-4)
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("attn_thresh", [0.0, 5e-4])
+def test_memory_read_kernel_streams(dev, dt, attn_thresh):
+    """B=2 streams, each with its own bank and size, one of them full."""
+    dtype, tol = DTYPES[dt]
+    q = _randn((2, 70, 128), dtype, dev, 7)
+    k = _randn((2, 320, 128), dtype, dev, 11)
+    v = _randn((2, 320, 128), dtype, dev, 12)
+    sz = torch.tensor([75, 320], dtype=torch.int32, device=dev)
+    before = _kernels.LAUNCHES["memory_read"]
+    out, asum = memory_read.memory_read_attention(q, k, v, sz, attn_thresh)
+    assert _kernels.LAUNCHES["memory_read"] == before + 1
+    ref_out, ref_asum = memory_read.memory_read_attention_plain(q, k, v, sz,
+                                                                attn_thresh)
+    tol = max(tol, 1e-4)
+    _assert_close(out, ref_out, tol)
+    _assert_close(asum, ref_asum, tol)
+    assert torch.count_nonzero(asum[0, 75:]) == 0
 
 
 def test_memory_read_column_sums_are_deterministic(dev):

@@ -92,3 +92,51 @@ def test_kernel_build_is_keyed_by_sources():
     assert {p.name for p in _kernels._sources()} >= {
         "rope2d.cu", "sdpa.cu", "memory_read.cu", "common.cuh"}
     assert "spann3r_torch/_build/" in (REPO / ".gitignore").read_text()
+
+
+# A stand-in for nvcc: writes its arguments to the file after -o; with -c
+# it fails for sources whose name contains $FAKE_NVCC_FAIL.
+_FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  prev="$a"
+done
+case " $* " in
+  *" -c "*) if [ -n "$FAKE_NVCC_FAIL" ]; then
+              case "$*" in *"$FAKE_NVCC_FAIL"*) echo "bad source"; exit 1;; esac
+            fi;;
+esac
+echo "$@" > "$out"
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    (bindir / "nvcc").write_text(_FAKE_NVCC)
+    (bindir / "nvcc").chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    return tmp_path / "build"
+
+
+def test_kernel_build_compiles_each_source_then_links(fake_nvcc):
+    so = _kernels.build()
+    assert so == _kernels.library_path() and so.parent == fake_nvcc
+    link = so.read_text().split()
+    assert "-shared" in link and "-c" not in link
+    objs = [a for a in link if a.endswith(".o")]
+    sources = [s.stem for s in _kernels._sources() if s.suffix == ".cu"]
+    assert sorted(Path(o).name.split(".")[-2] for o in objs) == sorted(sources)
+    assert not list(fake_nvcc.glob("*.o"))   # objects removed after the link
+    assert _kernels.build() == so            # built once per source hash
+
+
+def test_kernel_build_failure_names_the_source(fake_nvcc, monkeypatch):
+    monkeypatch.setenv("FAKE_NVCC_FAIL", "memory_read.cu")
+    with pytest.raises(RuntimeError, match="memory_read.cu"):
+        _kernels.build()
+    assert not _kernels.library_path().exists()
+    assert not list(fake_nvcc.glob("*.o")) and not list(fake_nvcc.glob("*.tmp"))
