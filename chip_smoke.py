@@ -10,8 +10,11 @@ Phases, each printing its results; any failure raises and exits non-zero:
   2. build   - compiles spann3r_torch/csrc/*.cu (into spann3r_torch/_build/)
                and prints the seconds it took;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
-               card, at the shapes the main path gives it (K1 also with two
-               streams of unequal sizes), in bf16 and fp32: max abs/rel
+               card, at the shapes the main path gives it (K3 on the q and
+               k of one attention in one launch, at the encoder and decoder
+               shapes, with int32 positions built as the model builds them;
+               K1 also with two streams of unequal sizes), in bf16 and
+               fp32: max abs/rel
                error beside the tolerance, and planted faults that the
                check must reject; kernel, plain and (K2 only)
                F.scaled_dot_product_attention times, each one CUDA-event
@@ -21,12 +24,14 @@ Phases, each printing its results; any failure raises and exits non-zero:
   4. slice   - the full-width model (Spann3RConfig(), random weights from
                seed 0) at 512x384 BF16 reconstructs 24 frames through
                spann3r_torch.api.reconstruct_video (chunk 16): shapes,
-               finiteness, conf >= 1, every kernel's launch count, at least
-               one memory prune; then FPS of five more runs (median);
+               finiteness, conf >= 1, every kernel's launch count (K3 once
+               per attention, by stage), at least one memory prune; then
+               FPS of five more runs (median);
   5. parity  - the same weights at FP32, 224x224, 4 frames: the card
                (kernels) against the CPU (plain versions), tolerance 1e-3.
-Before the last line it prints one JSON object with the kernels' records;
-the last line is {"ok": true, "device": {...}}.
+Before the last line it prints one JSON object with the kernels' records
+(K3's holds the encoder shape; its "decoder" field the decoder shape's
+numbers); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -50,22 +55,29 @@ HW_224 = (224, 224)
 # tolerances (max |kernel - plain| <= tol * (rms + |plain|), rms the root
 # mean square of the plain output over each stream or batch, so that the
 # bound follows the size of what is compared): fp32 RoPE is elementwise
-# (1e-5); fp32 attention sums in another order (1e-4); bf16 outputs carry
-# one bf16 rounding (2e-2). The memory read with attn_thresh > 0 may keep a
-# weight that the plain version drops, or the reverse, when the weight lies
-# within rounding of the threshold. After the renormalisation such a
-# weight is attn_thresh / kept (kept: the row's mass above the threshold,
-# ~0.17 for a full bank of random scores), so each flip moves an output by
-# up to attn_thresh / kept * max|v| and a slot's sum by attn_thresh / kept:
-# the rows and slots that hold a weight within 1e-4 (relative) of the
-# threshold get 2 * attn_thresh / min(kept) * max(1, max|v|) added to their
-# bound, and the run prints how many rows that is and how many elements
-# needed it. Planted faults (a key tile or a slot range left out) must fail
-# this check; the run also says whether the looser tol * (1 + |plain|)
-# bound of earlier runs would have caught them.
-TOL = {("rope2d", torch.float32): 1e-5, ("sdpa", torch.float32): 1e-4,
-       ("memory_read", torch.float32): 1e-4}
+# (1e-5); fp32 attention sums in another order (1e-4); bf16 RoPE rounds
+# once, from fp32 values that differ by fp32 rounding, so the two sides are
+# at most one bf16 ulp (2^-7 of |plain|) apart (8e-3); the other bf16
+# outputs carry rounded intermediates (2e-2). The memory read with
+# attn_thresh > 0 may keep a weight that the plain version drops, or the
+# reverse, when the weight lies within rounding of the threshold. After
+# the renormalisation such a weight is attn_thresh / kept (kept: the row's
+# mass above the threshold, ~0.17 for a full bank of random scores), so
+# each flip moves an output by up to attn_thresh / kept * max|v| and a
+# slot's sum by attn_thresh / kept: the rows and slots that hold a weight
+# within 1e-4 (relative) of the threshold get 2 * attn_thresh / min(kept) *
+# max(1, max|v|) added to their bound, and the run prints how many rows
+# that is and how many elements needed it. A flip also rescales the rest
+# of its row by up to attn_thresh / kept, so each slot's sum gets
+# 2 * attn_thresh / min(kept) times the weight it takes from those rows as
+# well. Planted faults (a key tile, a slot range or a RoPE head left out)
+# must fail this check; the run also says whether the looser
+# tol * (1 + |plain|) bound of earlier runs would have caught them.
 TOL_BF16 = 2e-2
+TOL_ROPE_BF16 = 8e-3
+TOL = {("rope2d", torch.float32): 1e-5,
+       ("rope2d", torch.bfloat16): TOL_ROPE_BF16,
+       ("sdpa", torch.float32): 1e-4, ("memory_read", torch.float32): 1e-4}
 E2E_TOL = 1e-3
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
@@ -182,12 +194,15 @@ def plain_weights(q, k, sizes, thr):
 
 def flip_allowance(q, k, v, sizes, thr):
     """The threshold flip term, on the rows (out) and slots (asum) that
-    hold a weight within rounding of the threshold, 0 elsewhere: (extra for
+    hold a weight within rounding of the threshold, 0 elsewhere, and on
+    every slot's sum the shift of those rows' renormalisation: (extra for
     out, extra for asum), the term, and the count of such rows."""
-    _, kept, near = plain_weights(q, k, sizes, thr)
+    a, kept, near = plain_weights(q, k, sizes, thr)
     term = 2 * thr / kept * max(1.0, float(v.float().abs().max()))
     rows = near.any(-1, keepdim=True).float()
-    return (rows * term, near.any(1).float() * term), term, int(rows.sum())
+    shift = (rows * a).sum(1) * (2 * thr / kept)
+    return ((rows * term, near.any(1).float() * term + shift), term,
+            int(rows.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -227,12 +242,17 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def phase_kernels(records):
+    from spann3r_torch.models.vit import patch_positions
     from spann3r_torch.ops import attention, memory_read, rope
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *s, dtype: torch.randn(*s, generator=g, device=dev).to(dtype)
     failures = []
+
+    def rope_qk_plain(q, k, qpos, kpos, sign=1.0):
+        return (rope.rope_2d_plain(q, qpos, 100.0, sign),
+                rope.rope_2d_plain(k, kpos, 100.0, sign))
 
     def planted(label, wrong, want, tol, extra=0.0):
         """A wrong result, planted, against the plain one: the check must
@@ -250,9 +270,9 @@ def phase_kernels(records):
     def case(kernel, label, dtype, run_kernel, run_plain, main, work,
              extra=(), note="", time_it=True, run_library=None):
         """work: (flops, bytes) the function needs on these inputs; extra:
-        the added bound of each output (none by default)."""
-        tol = TOL.get((kernel, dtype), TOL_BF16) if dtype == torch.float32 \
-            else TOL_BF16
+        the added bound of each output (none by default). Returns the
+        case's record."""
+        tol = TOL.get((kernel, dtype), TOL_BF16)
         outs_k, outs_p = run_kernel(), run_plain()
         if not isinstance(outs_k, tuple):
             outs_k, outs_p = (outs_k,), (outs_p,)
@@ -278,37 +298,68 @@ def phase_kernels(records):
             f"bound_ms={bms:.4f} ({bound_by})")
         if not ok:
             failures.append(f"{kernel} {label} {dt}")
+        rec = {"max_abs_err": max_abs, "ms": ms, "plain_ms": pms,
+               "bound_ms": bms, "bound_by": bound_by, "library_ms": lms,
+               "shape": label}
         if main:
             src, rep = SOURCES[kernel]
             records[kernel] = {"name": kernel, "route": "cuda", "source": src,
-                               "replaces": rep, "max_abs_err": max_abs,
-                               "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                               "bound_by": bound_by, "library_ms": lms,
-                               "shape": label}
+                               "replaces": rep, **rec}
             if kernel in ALSO_REPLACES:
                 records[kernel]["also_replaces"] = ALSO_REPLACES[kernel]
+        return rec
 
+    # the positions as the model builds them: int32 (y, x) of the 512x384
+    # patch grid, expanded over the batch with stride 0
+    grid = patch_positions(HW_512[0] // 16, HW_512[1] // 16, dev)
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
         esize = torch.finfo(dtype).bits // 8
-        # K3: encoder (B=16 frames, 16 heads) and decoder (12 heads) q/k,
-        # as strided slices of a qkv projection
-        for (b, h, n) in ((16, 16, 768), (1, 12, 768)):
-            qkv = randn(b, n, 3, h, 64, dtype=dtype).permute(2, 0, 3, 1, 4)
-            tok = qkv[0]
-            pos = torch.stack(torch.meshgrid(torch.arange(24), torch.arange(32),
-                                             indexing="ij"), -1).reshape(-1, 2)
-            pos = pos[None].expand(b, -1, -1).to(dev)
-            work = (3.0 * tok.numel(),
-                    2.0 * tok.numel() * esize + pos.numel() * pos.element_size())
-            case("rope2d", f"({b},{h},{n},64) strided", dtype,
-                 lambda: rope.rope_2d_cuda(tok, pos, 100.0),
-                 lambda: rope.rope_2d_plain(tok, pos, 100.0),
-                 main and b == 16, work)
-            case("rope2d", f"({b},{h},{n},64) inverse", dtype,
-                 lambda: rope.rope_2d_cuda(tok.contiguous(), pos, sign=-1.0),
-                 lambda: rope.rope_2d_plain(tok, pos, sign=-1.0), False,
-                 work, time_it=False)
+        # K3 on q and k of one attention: encoder (16 frames, 16 heads) and
+        # decoder self-attention (12 heads) as strided slices of one qkv
+        # projection, sharing their positions; cross-attention with q and k
+        # split from separate projections, each with its own positions
+        # (768 tokens each, and a ragged 196 / 300)
+        for (label, b, h, nq, nk) in (("encoder", 16, 16, 768, 768),
+                                      ("decoder", 1, 12, 768, 768),
+                                      ("decoder cross", 1, 12, 768, 768),
+                                      ("cross ragged", 1, 12, 196, 300)):
+            if "cross" in label:
+                q, k = (randn(b, n, h, 64, dtype=dtype).transpose(1, 2)
+                        for n in (nq, nk))
+                qpos, kpos = (torch.randint(0, 32, (b, n, 2), generator=g,
+                                            device=dev, dtype=torch.int32)
+                              if nq != nk else grid[None].clone()
+                              for n in (nq, nk))
+            else:
+                qkv = randn(b, nq, 3, h, 64, dtype=dtype).permute(2, 0, 3, 1, 4)
+                q, k = qkv[0], qkv[1]
+                qpos = kpos = grid[None].expand(b, -1, -1)
+            pos_bytes = sum({p.data_ptr(): p.untyped_storage().nbytes()
+                             for p in (qpos, kpos)}.values())
+            work = (3.0 * (q.numel() + k.numel()),
+                    2.0 * (q.numel() + k.numel()) * esize + pos_bytes)
+            shape = f"q ({b},{h},{nq},64) k ({b},{h},{nk},64)"
+            timed = "cross" not in label
+            rec = case("rope2d", f"{label} {shape}", dtype,
+                       lambda: rope.rope_2d_qk_cuda(q, k, qpos, kpos),
+                       lambda: rope_qk_plain(q, k, qpos, kpos),
+                       main and label == "encoder", work, time_it=timed)
+            if main and label == "decoder":
+                rope_decoder = rec
+            if timed:
+                case("rope2d", f"{label} inverse, contiguous", dtype,
+                     lambda: rope.rope_2d_qk_cuda(q.contiguous(), k.contiguous(),
+                                                  qpos, kpos, sign=-1.0),
+                     lambda: rope_qk_plain(q, k, qpos, kpos, -1.0),
+                     False, work, time_it=False)
+            if dtype == torch.bfloat16 and timed:
+                # planted fault: the last head of k left unrotated
+                want = rope.rope_2d_plain(k, kpos, 100.0)
+                wrong = want.clone()
+                wrong[:, -1] = k[:, -1]
+                planted(f"rope2d {label} {shape} with the last head of k "
+                        f"unrotated", wrong, want, TOL_ROPE_BF16)
         # K2: q, k, v as strided slices of a qkv projection (the decoder's
         # cross-attention reads them the same way): encoder self-attention
         # (16 frames), decoder self and cross (12 heads), value encoder
@@ -375,6 +426,7 @@ def phase_kernels(records):
                                 f"without its {what}",
                                 torch.matmul(a, v.float()).to(dtype), want,
                                 TOL_BF16, extra[0] if extra else 0.0)
+    records["rope2d"]["decoder"] = rope_decoder
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -402,7 +454,7 @@ def phase_slice(records, card, profile_out=None):
     from spann3r_torch import api, config
     from spann3r_torch.models import memory as mem_mod
     from spann3r_torch.models import spann3r as sp
-    from spann3r_torch.ops import _kernels
+    from spann3r_torch.ops import _kernels, rope
 
     cfg = config.Spann3RConfig()
     dev = torch.device("cuda")
@@ -429,8 +481,18 @@ def phase_slice(records, card, profile_out=None):
                      size=int(self.carry.mem.size[0]))
         return out
 
+    # K3 calls by stage: the encoder rotates a chunk of frames (B > 1), the
+    # decoder one frame
+    rope_calls = {"encoder": 0, "decoder": 0}
+    orig_rope = rope._launch
+
+    def tallying_rope(ops, *a, **kw):
+        rope_calls["encoder" if ops[0][0].shape[0] > 1 else "decoder"] += 1
+        return orig_rope(ops, *a, **kw)
+
     mem_mod.memory_prune = counting_prune
     sp.InferenceEngine.run_video = run_video_recording
+    rope._launch = tallying_rope
     try:
         torch.cuda.synchronize()
         _kernels.reset_launches()
@@ -441,9 +503,10 @@ def phase_slice(records, card, profile_out=None):
     finally:
         mem_mod.memory_prune = orig_prune
         sp.InferenceEngine.run_video = orig_engine_run
+        rope._launch = orig_rope
     log(f"[slice] launches {counts} memory_reads={reads['memory_reads']} "
-        f"prunes={prunes['n']} final bank size={reads['size']} "
-        f"wm={reads['wm']} lm={reads['lm']}")
+        f"rope2d by stage {rope_calls} prunes={prunes['n']} final bank "
+        f"size={reads['size']} wm={reads['wm']} lm={reads['lm']}")
 
     h, w = HW_512
     if len(preds) != FRAMES_512 or order != list(range(FRAMES_512)):
@@ -465,6 +528,15 @@ def phase_slice(records, card, profile_out=None):
     if counts["memory_read"] != reads["memory_reads"]:
         raise AssertionError(f"memory_read launches {counts['memory_read']} != "
                              f"memory reads {reads['memory_reads']}")
+    # one K3 launch per attention with RoPE: every encoder block once per
+    # chunk, every block of both decoders twice (self and cross) per frame
+    # after the first
+    chunks = -(-FRAMES_512 // 16)
+    want = (cfg.dust3r.enc.depth * chunks
+            + cfg.dust3r.dec.depth * 2 * 2 * (FRAMES_512 - 1))
+    if counts["rope2d"] != want or sum(rope_calls.values()) != want:
+        raise AssertionError(f"rope2d launches {counts['rope2d']} (by stage "
+                             f"{rope_calls}), expected {want}")
     mcfg = cfg.memory
     p_tokens = (h // 16) * (w // 16)
     if prunes["n"] < 1:
@@ -472,6 +544,8 @@ def phase_slice(records, card, profile_out=None):
     log(f"[slice] preds ok: {len(preds)} x (1,{h},{w},3) finite, conf >= 1; "
         f"lm after prunes follows long_mem_size - wm*P = "
         f"{mcfg.long_mem_size - reads['wm'] * p_tokens} (+k*P)")
+    records["rope2d"]["launches_per_run_encoder"] = rope_calls["encoder"]
+    records["rope2d"]["decoder"]["launches_per_run"] = rope_calls["decoder"]
     for name in _kernels.KERNELS:
         rec = records[name]
         rec["launches"] = rec["launches_per_run"] = counts[name]
@@ -481,6 +555,12 @@ def phase_slice(records, card, profile_out=None):
             f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} library_ms={lib_s}"
             f" bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
             f"launches_per_run={counts[name]}")
+    dec = records["rope2d"]["decoder"]
+    log(f"[kernels] rope2d      record {dec['shape']}: kernel_ms="
+        f"{dec['ms']:.4f} plain_ms={dec['plain_ms']:.4f} library_ms=null "
+        f"bound_ms={dec['bound_ms']:.4f} ({dec['bound_by']}) "
+        f"launches_per_run={dec['launches_per_run']} (encoder "
+        f"{rope_calls['encoder']})")
 
     # timed runs after the first; the host loop sets the pace, so single
     # runs vary by tens of percent: report every run and the median

@@ -46,9 +46,12 @@ _i64 = ctypes.c_longlong
 _f32 = ctypes.c_float
 
 _SIGNATURES = {
-    # x, out, pos, dtype, B, H, N, D, sb, sh, sn, base, sign, stream
-    "spann3r_rope2d": [_vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
-                       _i64, _i64, _i64, _f32, _f32, _vp],
+    # n_ops, ptrs[3 n_ops], strides[9 n_ops], n_tokens[n_ops] (packed
+    # uint64, int64 and int32 arrays), shared, dtype, B, H, D, vec, tile,
+    # base, sign, stream
+    "spann3r_rope2d": [_i32, ctypes.c_char_p, ctypes.c_char_p,
+                       ctypes.c_char_p, _i32, _i32, _i32, _i32, _i32, _i32,
+                       _i32, _f32, _f32, _vp],
     # q, k, v, out, dtype, B, H, N, M, D, 4 x (sb, sh, sn), scale, stream
     "spann3r_sdpa": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32]
                     + [_i64] * 12 + [_f32, _vp],

@@ -18,7 +18,7 @@ from torch import nn
 
 from . import _kernels
 from .layers import linear
-from .rope import rope_2d
+from .rope import rope_2d, rope_2d_qk
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,8 +108,7 @@ def self_attention(m: SelfAttention, x: torch.Tensor,
     qkv = qkv.permute(2, 0, 3, 1, 4)  # (3, B, H, N, Dh) view
     q, k, v = qkv[0], qkv[1], qkv[2]
     if pos is not None and rope_base > 0:
-        q = rope_2d(q, pos, rope_base)
-        k = rope_2d(k, pos, rope_base)
+        q, k = rope_2d_qk(q, k, pos, pos, rope_base)
     out = sdpa(q, k, v, head_dim ** -0.5)
     return linear(m.proj, _merge_heads(out))
 
@@ -123,9 +122,12 @@ def cross_attention(m: CrossAttention, query: torch.Tensor, key: torch.Tensor,
     q = _split_heads(linear(m.projq, query), num_heads)
     k = _split_heads(linear(m.projk, key), num_heads)
     v = _split_heads(linear(m.projv, value), num_heads)
-    if qpos is not None and rope_base > 0:
-        q = rope_2d(q, qpos, rope_base)
-    if kpos is not None and rope_base > 0:
-        k = rope_2d(k, kpos, rope_base)
+    if rope_base > 0:
+        if qpos is not None and kpos is not None:
+            q, k = rope_2d_qk(q, k, qpos, kpos, rope_base)
+        elif qpos is not None:
+            q = rope_2d(q, qpos, rope_base)
+        elif kpos is not None:
+            k = rope_2d(k, kpos, rope_base)
     out = sdpa(q, k, v, head_dim ** -0.5)
     return linear(m.proj, _merge_heads(out))

@@ -13,7 +13,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
-from spann3r_torch.ops import attention, memory_read  # noqa: E402
+from spann3r_torch.ops import attention, memory_read, rope  # noqa: E402
 
 
 def _randn(*shape, seed):
@@ -25,6 +25,40 @@ def test_bound_passes_one_bf16_rounding():
     ok, max_abs, _, n_over = chip_smoke.compare(
         "x", want.to(torch.bfloat16), want, chip_smoke.TOL_BF16)
     assert ok and n_over == 0 and 0 < max_abs < 1e-3
+
+
+def _rope_operands():
+    qkv = _randn(2, 40, 3, 4, 64, seed=10).to(torch.bfloat16).permute(2, 0, 3, 1, 4)
+    pos = torch.randint(0, 32, (40, 2), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(11))
+    return qkv[1], pos[None].expand(2, -1, -1)
+
+
+def test_rope_bound_passes_one_bf16_rounding():
+    """The K3 bound 8e-3 * (rms + |plain|) holds the rounding of the fp32
+    result and a neighbour one bf16 ulp away, the most two sides that round
+    once can differ by."""
+    k, pos = _rope_operands()
+    exact = rope.rope_2d_plain(k.float(), pos, 100.0)
+    want = exact.to(torch.bfloat16)
+    assert chip_smoke.compare("rope2d", want, exact, chip_smoke.TOL_ROPE_BF16)[0]
+    up = (want.view(torch.int16) + 1).view(torch.bfloat16)   # one ulp away
+    assert (up != want).all()
+    ok, max_abs, _, n_over = chip_smoke.compare(
+        "rope2d", up, want, chip_smoke.TOL_ROPE_BF16)
+    assert ok and n_over == 0 and max_abs > 0
+
+
+def test_rope_bound_rejects_an_unrotated_head():
+    """The planted K3 fault: the last head of k left unrotated."""
+    k, pos = _rope_operands()
+    want = rope.rope_2d_plain(k, pos, 100.0)
+    wrong = want.clone()
+    wrong[:, -1] = k[:, -1]
+    ok, _, _, n_over = chip_smoke.compare("rope2d", wrong, want,
+                                          chip_smoke.TOL_ROPE_BF16)
+    assert not ok and n_over > 0
+    assert chip_smoke.compare("rope2d", want, want, chip_smoke.TOL_ROPE_BF16)[0]
 
 
 def test_bound_rejects_a_missing_key_tile():
@@ -70,6 +104,30 @@ def test_flip_allowance_covers_only_rows_near_the_threshold():
     assert set(ex_out.unique().tolist()) <= {0.0, term}
     assert rows == int((ex_out > 0).sum())
     assert not ex_asum[1, 50:].any()   # no weight past a stream's size
+
+
+def test_flip_allowance_covers_the_renormalisation_of_a_flipped_row():
+    """A weight exactly at the threshold, kept by one side and dropped by
+    the other: the column sums of the whole row move (its renormalisation),
+    not only the flipped slot's, and the fp32 bound with the allowance
+    holds them."""
+    q, k, v = (_randn(1, n, 32, seed=s) for s, n in ((12, 8), (13, 64), (14, 64)))
+    s = torch.matmul(q[0], k[0].T) / 32 ** 0.5
+    a_pre = torch.softmax(s, -1)
+    c0 = int(a_pre[0].argsort()[40])             # a weight above the mean
+    thr = float(a_pre[0, c0])
+    size = torch.tensor([64], dtype=torch.int32)
+    _, want = memory_read.memory_read_attention_plain(q, k, v, size, thr)
+    a = torch.where(a_pre < thr, torch.zeros_like(a_pre), a_pre)
+    a[0, c0] = 0.0                               # the other side drops it
+    flipped = (a / (a.sum(-1, keepdim=True) + 1e-12)).sum(0, keepdim=True)
+    tol = chip_smoke.TOL[("memory_read", torch.float32)]
+    (_, ex_asum), term, rows = chip_smoke.flip_allowance(q, k, v, (64,), thr)
+    assert rows >= 1
+    assert chip_smoke.compare("asum", flipped, want, tol, ex_asum)[0]
+    # the flipped slot's term alone does not hold the rest of the row
+    near_only = (ex_asum >= term).float() * term
+    assert not chip_smoke.compare("asum", flipped, want, tol, near_only)[0]
 
 
 def test_script_refuses_without_a_card(tmp_path):

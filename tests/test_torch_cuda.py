@@ -47,6 +47,67 @@ def test_rope_kernel(dev, dt, sign):
     _assert_close(out, rope.rope_2d_plain(qkv[1], pos, 100.0, sign), tol)
 
 
+def _rope_qk_operands(layout, d, dtype, dev):
+    """q, k, qpos, kpos: 'packed' slices one qkv projection and shares int32
+    positions expanded over the batch with stride 0; 'cross' splits q and k
+    (N != M) from separate projections, each with its own positions (int64
+    for k); 'misaligned' views q one element into its buffer, so only
+    scalar accesses stay aligned."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    if layout == "packed":
+        qkv = _randn((2, 37, 3, 3, d), dtype, dev, 21).permute(2, 0, 3, 1, 4)
+        pos = torch.randint(0, 32, (37, 2), generator=g, device=dev,
+                            dtype=torch.int32)[None].expand(2, -1, -1)
+        return qkv[0], qkv[1], pos, pos
+    q = _randn((2, 19, 3 * d), dtype, dev, 22).view(2, 19, 3, d).transpose(1, 2)
+    k = _randn((2, 45, 3 * d), dtype, dev, 23).view(2, 45, 3, d).transpose(1, 2)
+    qpos = torch.randint(0, 32, (2, 19, 2), generator=g, device=dev,
+                         dtype=torch.int32)
+    kpos = torch.randint(0, 32, (2, 45, 2), generator=g, device=dev)
+    if layout == "misaligned":
+        q = _randn((2, 3, 19, d + 1), dtype, dev, 24)[..., 1:]
+    return q, k, qpos, kpos
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("d", [64, 32, 48])
+@pytest.mark.parametrize("layout", ["packed", "cross", "misaligned"])
+def test_rope_qk_kernel(dev, dt, sign, d, layout):
+    """q and k of one attention in one launch, each against the plain
+    version: at most one bf16 rounding apart (8e-3), 1e-5 in fp32."""
+    dtype, _ = DTYPES[dt]
+    tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    q, k, qpos, kpos = _rope_qk_operands(layout, d, dtype, dev)
+    widest = 16 // q.element_size()
+    if layout == "misaligned":
+        assert rope.vector_width([q, k]) == 1
+    elif d == 48:   # Q = 12: 4 elements per access in either dtype
+        assert rope.vector_width([q, k]) == 4
+    else:
+        assert rope.vector_width([q, k]) == widest
+    before = _kernels.LAUNCHES["rope2d"]
+    qr, kr = rope.rope_2d_qk(q, k, qpos, kpos, 100.0, sign)
+    assert _kernels.LAUNCHES["rope2d"] == before + 1
+    _assert_close(qr, rope.rope_2d_plain(q, qpos, 100.0, sign), tol)
+    _assert_close(kr, rope.rope_2d_plain(k, kpos, 100.0, sign), tol)
+    assert qr.is_contiguous() and kr.is_contiguous()
+    # each operand alone takes one launch and gives the same bits
+    assert torch.equal(rope.rope_2d(q, qpos, 100.0, sign), qr)
+    assert torch.equal(rope.rope_2d(k, kpos, 100.0, sign), kr)
+    assert _kernels.LAUNCHES["rope2d"] == before + 3
+
+
+def test_rope_qk_kernel_token_tiles(dev):
+    """Every token tile size gives the same bits, and a tile that is not
+    a divisor of N leaves a ragged last block."""
+    q, k, qpos, kpos = _rope_qk_operands("cross", 64, torch.bfloat16, dev)
+    want = rope._launch([(q, qpos), (k, kpos)], 100.0, 1.0, tile=1)
+    for tile in (2, 7, 8, 64):
+        got = rope._launch([(q, qpos), (k, kpos)], 100.0, 1.0, tile=tile)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("b,h,n,m", [(2, 3, 20, 20), (1, 4, 70, 33),
                                      (1, 2, 196, 196),

@@ -223,6 +223,95 @@ def test_rope_strided_view_matches_contiguous():
                                rtol=0, atol=0)
 
 
+def _rope_qk_inputs(seed, d=64):
+    """q (2, 3, 20, d) and k (2, 3, 29, d) with their own positions; the
+    positions of q are one grid expanded over the batch with stride 0, as
+    the model passes them."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, 3, 20, d)).astype(np.float32)
+    k = rng.standard_normal((2, 3, 29, d)).astype(np.float32)
+    qgrid = rng.integers(0, 14, (20, 2)).astype(np.int32)
+    kpos = rng.integers(0, 14, (2, 29, 2)).astype(np.int32)
+    return q, k, qgrid, kpos
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("d", [64, 32])
+def test_rope_qk_vs_jax(interpret_mode, sign, d):
+    """The two-operand entry point against the Pallas kernel (interpret
+    mode) and the JAX package's reference, each operand on its own."""
+    q, k, qgrid, kpos = _rope_qk_inputs(15, d)
+    qpos_t = torch.from_numpy(qgrid)[None].expand(2, -1, -1)
+    assert qpos_t.stride(0) == 0
+    qpos = np.broadcast_to(qgrid, (2, 20, 2))
+    qr, kr = TR.rope_2d_qk(torch.from_numpy(q), torch.from_numpy(k), qpos_t,
+                           torch.from_numpy(kpos), 100.0, sign)
+    for out, x, p in ((qr, q, qpos), (kr, k, kpos)):
+        xj, pj = jnp.asarray(x), jnp.asarray(p)
+        _close(out, JPR._rope_pallas_raw(xj, pj, 100.0, sign), tol=1e-6)
+        _close(out, jax_rope_apply(xj, pj, 100.0, sign), tol=1e-6)
+
+
+def test_rope_qk_bf16_vs_jax(interpret_mode):
+    """bf16 q and k against the Pallas kernel and against `_apply` in fp32
+    on the same bf16 inputs, rounded once, as the kernel computes (`_apply`
+    on bf16 inputs rounds its cos/sin tables to bf16, which the port does
+    not): at most one bf16 ulp apart."""
+    q, k, qgrid, kpos = _rope_qk_inputs(16)
+    qpos = np.broadcast_to(qgrid, (2, 20, 2))
+    to_t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+    qj, kj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k))
+    qr, kr = TR.rope_2d_qk(to_t(qj), to_t(kj),
+                           torch.from_numpy(qgrid)[None].expand(2, -1, -1),
+                           torch.from_numpy(kpos), 100.0)
+    for out, xj, p in ((qr, qj, qpos), (kr, kj, kpos)):
+        assert out.dtype == torch.bfloat16
+        for ref in (JPR._rope_pallas_raw(xj, jnp.asarray(p), 100.0, 1.0),
+                    jax_rope_apply(xj.astype(jnp.float32), jnp.asarray(p),
+                                   100.0, 1.0).astype(jnp.bfloat16)):
+            np.testing.assert_allclose(_np(out.float()),
+                                       _np(ref.astype(jnp.float32)),
+                                       rtol=8e-3, atol=8e-3)
+
+
+@pytest.mark.parametrize("d,dtype,offset,want", [
+    (64, torch.bfloat16, 0, 8), (64, torch.float32, 0, 4),
+    (48, torch.bfloat16, 0, 4), (32, torch.bfloat16, 0, 8),
+    (64, torch.bfloat16, 4, 4), (64, torch.bfloat16, 1, 1),
+    (4, torch.float32, 0, 1)])
+def test_rope_kernel_vector_width(d, dtype, offset, want):
+    """16-byte accesses where D/4, the pointers and the strides allow them,
+    narrower ones elsewhere: a q slice of a qkv projection viewed `offset`
+    elements into its buffer."""
+    buf = torch.zeros(2 * 5 * 3 * 4 * d + offset, dtype=dtype)
+    qkv = buf[offset:].view(2, 5, 3, 4, d).permute(2, 0, 3, 1, 4)
+    assert TR.vector_width([qkv[0], qkv[1], torch.empty(2, 4, 5, d, dtype=dtype)]) == want
+
+
+@pytest.mark.parametrize("n,blocks,want", [
+    (768, 16, 16),    # encoder q+k: 16 frames
+    (768, 1, 4),      # decoder q+k, shared positions: 192 blocks
+    (768, 2, 8),      # q and k with positions of their own
+    (196, 1, 1), (5, 64, 2), (5, 8, 1)])
+def test_rope_kernel_token_tile(n, blocks, want):
+    """The largest tile whose grid still gives each of the 132 SMs a block."""
+    assert TR.token_tile(n, blocks, 132) == want
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "pos", "float pos", "three"])
+def test_rope_kernel_rejects_mismatched_operands(bad):
+    """The launcher checks its operands before it reaches the kernel."""
+    q = torch.zeros(2, 3, 5, 64)
+    k = torch.zeros(2, 4 if bad == "heads" else 3, 7, 64,
+                    dtype=torch.bfloat16 if bad == "dtype" else torch.float32)
+    qpos = torch.zeros(2, 5, 2, dtype=torch.int32)
+    kpos = torch.zeros(2, 5 if bad == "pos" else 7, 2,
+                       dtype=torch.float32 if bad == "float pos" else torch.int32)
+    ops = [(q, qpos), (k, kpos)] + ([(q, qpos)] if bad == "three" else [])
+    with pytest.raises(ValueError):
+        TR._launch(ops, 100.0, 1.0)
+
+
 # ---------------------------------------------------------------------------
 # SDPA (kernel K2's plain version) and the attention blocks
 # ---------------------------------------------------------------------------
