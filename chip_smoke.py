@@ -27,11 +27,33 @@ Phases, each printing its results; any failure raises and exits non-zero:
                finiteness, conf >= 1, every kernel's launch count (K3 once
                per attention, by stage), at least one memory prune; then
                FPS of five more runs (median);
-  5. parity  - the same weights at FP32, 224x224, 4 frames: the card
-               (kernels) against the CPU (plain versions), tolerance 1e-3.
-Before the last line it prints one JSON object with the kernels' records
-(K3's holds the encoder shape; its "decoder" field the decoder shape's
-numbers); the last line is {"ok": true, "device": {...}}.
+  5. offline - the same model reconstructs 8 normalised frames offline
+               (api.reconstruct_video(offline=True), complete graph, BF16):
+               the preds contract, a frame order that is a permutation,
+               launches of each kernel by stage against what the code
+               implies (offline_launches), the K2/K3 launches at decoder
+               batch 8 and in the 8-frame encoder; the wall per clip
+               (median of 3 after a first run);
+  6. engine  - InferenceEngine.run (a frame at a time) on 8 frames against
+               run_video on the same frames, within ENGINE_TOL;
+  7. serving - the 24-frame slice under cast_serving_weights_, BF16_FAST,
+               int8 weight-only and int8 weights + activations: the preds
+               contract, the int8 matrices, the difference from the plain
+               BF16 slice (cast weights: none beyond what two plain runs
+               differ by), device busy time and copy kernels of one
+               profiled run, and the median wall of 3 runs;
+  8. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
+               offline: the card (kernels) against the CPU (plain
+               versions), the same frame order, tolerance 1e-3.
+Phase 3 also runs K2 and K3 at the offline shapes: the encoder on 8 frames,
+the decoder at the pairwise scan's batch of 8 and at the candidate
+batches of the greedy rounds (6 down to 2, checked, not timed), positions
+expanded over the batch with stride 0. Before the last line it prints one
+JSON object with the kernels' records (K3's holds the encoder shape; its
+"decoder" field the decoder shape's numbers; the "offline" fields of K2
+and K3 the batch-8 decoder shape's and the "offline_encoder" fields the
+8-frame encoder's, each with its launches in the offline run); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -48,6 +70,11 @@ import torch
 
 SEED = 0
 FRAMES_512 = 24
+FRAMES_OFFLINE = 8
+# the decoder batches of the offline run's candidate scoring: the frames
+# not used yet, n - 2 down to 1 (batch 1 is the streaming decoder's)
+CANDIDATE_BATCHES = tuple(range(2, FRAMES_OFFLINE - 1))
+FRAMES_ENGINE = 8
 TIMED_RUNS = 5
 HW_512 = (384, 512)
 HW_224 = (224, 224)
@@ -79,6 +106,11 @@ TOL = {("rope2d", torch.float32): 1e-5,
        ("rope2d", torch.bfloat16): TOL_ROPE_BF16,
        ("sdpa", torch.float32): 1e-4, ("memory_read", torch.float32): 1e-4}
 E2E_TOL = 1e-3
+# the frame-at-a-time engine against the chunked run, both BF16: the
+# port's bf16 bound against the JAX package (tests/test_torch_model.py
+# BF16_TOL), |a - b| <= 1e-2 * (1 + |b|); the chunked run rounds its
+# outputs to bf16 and encodes a chunk in one batch
+ENGINE_TOL = 1e-2
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor-core rate and device-memory rate, for each kernel's bound
@@ -322,6 +354,10 @@ def phase_kernels(records):
         # (768 tokens each, and a ragged 196 / 300)
         for (label, b, h, nq, nk) in (("encoder", 16, 16, 768, 768),
                                       ("decoder", 1, 12, 768, 768),
+                                      ("encoder B=8", 8, 16, 768, 768),
+                                      ("decoder B=8", 8, 12, 768, 768),
+                                      *((f"candidates B={c}", c, 12, 768, 768)
+                                        for c in CANDIDATE_BATCHES),
                                       ("decoder cross", 1, 12, 768, 768),
                                       ("cross ragged", 1, 12, 196, 300)):
             if "cross" in label:
@@ -340,13 +376,17 @@ def phase_kernels(records):
             work = (3.0 * (q.numel() + k.numel()),
                     2.0 * (q.numel() + k.numel()) * esize + pos_bytes)
             shape = f"q ({b},{h},{nq},64) k ({b},{h},{nk},64)"
-            timed = "cross" not in label
+            timed = "cross" not in label and "candidates" not in label
             rec = case("rope2d", f"{label} {shape}", dtype,
                        lambda: rope.rope_2d_qk_cuda(q, k, qpos, kpos),
                        lambda: rope_qk_plain(q, k, qpos, kpos),
                        main and label == "encoder", work, time_it=timed)
             if main and label == "decoder":
                 rope_decoder = rec
+            if main and label == "decoder B=8":
+                rope_offline = rec
+            if main and label == "encoder B=8":
+                rope_offline_encoder = rec
             if timed:
                 case("rope2d", f"{label} inverse, contiguous", dtype,
                      lambda: rope.rope_2d_qk_cuda(q.contiguous(), k.contiguous(),
@@ -366,6 +406,10 @@ def phase_kernels(records):
         # (16 heads), and ragged 224x224 shapes
         for (b, h, n, m, label) in ((16, 16, 768, 768, "encoder"),
                                     (1, 12, 768, 768, "decoder"),
+                                    (8, 16, 768, 768, "encoder B=8"),
+                                    (8, 12, 768, 768, "decoder B=8"),
+                                    *((c, 12, 768, 768, f"candidates B={c}")
+                                      for c in CANDIDATE_BATCHES),
                                     (1, 16, 768, 768, "value encoder"),
                                     (1, 16, 196, 196, "self N=196"),
                                     (1, 12, 196, 300, "cross N!=M")):
@@ -373,13 +417,20 @@ def phase_kernels(records):
             kv = randn(b, m, 3, h, 64, dtype=dtype).permute(2, 0, 3, 1, 4)
             k, v = kv[1], kv[2]
             work = (4.0 * b * h * n * m * 64, esize * 2.0 * b * h * (n + m) * 64)
-            case("sdpa", f"{label} ({b},{h},{n},{m})", dtype,
-                 lambda: attention.sdpa_cuda(q, k, v, 0.125),
-                 lambda: attention.sdpa_plain(q, k, v, 0.125),
-                 main and b == 16, work,
-                 run_library=lambda: torch.nn.functional.scaled_dot_product_attention(
-                     q, k, v, scale=0.125))
-            if dtype == torch.bfloat16 and label in ("encoder", "decoder"):
+            rec = case("sdpa", f"{label} ({b},{h},{n},{m})", dtype,
+                       lambda: attention.sdpa_cuda(q, k, v, 0.125),
+                       lambda: attention.sdpa_plain(q, k, v, 0.125),
+                       main and b == 16, work,
+                       time_it="candidates" not in label,
+                       run_library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q, k, v, scale=0.125))
+            if main and label == "decoder B=8":
+                sdpa_offline = rec
+            if main and label == "encoder B=8":
+                sdpa_offline_encoder = rec
+            if dtype == torch.bfloat16 and label in ("encoder", "decoder",
+                                                     "encoder B=8",
+                                                     "decoder B=8"):
                 # planted fault: the PV of the last key tile left out
                 p = torch.softmax(torch.matmul(q.float(), k.float().transpose(
                     -1, -2)) * 0.125, dim=-1).to(dtype).float()
@@ -427,6 +478,10 @@ def phase_kernels(records):
                                 torch.matmul(a, v.float()).to(dtype), want,
                                 TOL_BF16, extra[0] if extra else 0.0)
     records["rope2d"]["decoder"] = rope_decoder
+    records["rope2d"]["offline"] = rope_offline
+    records["sdpa"]["offline"] = sdpa_offline
+    records["rope2d"]["offline_encoder"] = rope_offline_encoder
+    records["sdpa"]["offline_encoder"] = sdpa_offline_encoder
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -450,18 +505,45 @@ def make_frames(t, hw, seed=SEED):
     return out
 
 
-def phase_slice(records, card, profile_out=None):
+def check_preds(label, preds, t, hw):
+    """The reference contract of t frames: preds[0] {'pts3d', 'conf'}, the
+    rest {'pts3d_in_other_view', 'conf'}, (1, H, W, 3) and (1, H, W),
+    finite, conf >= 1."""
+    h, w = hw
+    if len(preds) != t:
+        raise AssertionError(f"{label}: expected {t} preds, got {len(preds)}")
+    for i, pr in enumerate(preds):
+        key = "pts3d" if i == 0 else "pts3d_in_other_view"
+        if set(pr) != {key, "conf"}:
+            raise AssertionError(f"{label}: pred {i} keys {sorted(pr)}")
+        if pr[key].shape != (1, h, w, 3) or pr["conf"].shape != (1, h, w):
+            raise AssertionError(f"{label}: pred {i} shapes {pr[key].shape} "
+                                 f"{pr['conf'].shape}")
+        if not (np.isfinite(pr[key]).all() and np.isfinite(pr["conf"]).all()):
+            raise AssertionError(f"{label}: pred {i} is not finite")
+        if not (pr["conf"] >= 1.0).all():
+            raise AssertionError(f"{label}: pred {i} has conf < 1")
+
+
+def build_model():
+    """The full-width model on the card, random weights from SEED."""
+    from spann3r_torch import config
+    from spann3r_torch.models import spann3r as sp
+
+    cfg = config.Spann3RConfig()
+    t0 = time.perf_counter()
+    model = sp.build_spann3r(cfg, "cuda", torch.Generator().manual_seed(SEED))
+    log(f"[model] Spann3RConfig() built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters())} params")
+    return cfg, model
+
+
+def phase_slice(records, cfg, model, card, profile_out=None):
     from spann3r_torch import api, config
     from spann3r_torch.models import memory as mem_mod
     from spann3r_torch.models import spann3r as sp
     from spann3r_torch.ops import _kernels, rope
 
-    cfg = config.Spann3RConfig()
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    model = sp.build_spann3r(cfg, dev, torch.Generator().manual_seed(SEED))
-    log(f"[slice] model built in {time.perf_counter() - t0:.1f} s, "
-        f"{sum(p.numel() for p in model.parameters())} params")
     frames = make_frames(FRAMES_512, HW_512)
 
     prunes = {"n": 0}
@@ -509,19 +591,9 @@ def phase_slice(records, card, profile_out=None):
         f"size={reads['size']} wm={reads['wm']} lm={reads['lm']}")
 
     h, w = HW_512
-    if len(preds) != FRAMES_512 or order != list(range(FRAMES_512)):
-        raise AssertionError(f"expected {FRAMES_512} preds, got {len(preds)}")
-    for i, pr in enumerate(preds):
-        key = "pts3d" if i == 0 else "pts3d_in_other_view"
-        if set(pr) != {key, "conf"}:
-            raise AssertionError(f"pred {i} keys {sorted(pr)}")
-        if pr[key].shape != (1, h, w, 3) or pr["conf"].shape != (1, h, w):
-            raise AssertionError(f"pred {i} shapes {pr[key].shape} "
-                                 f"{pr['conf'].shape}")
-        if not (np.isfinite(pr[key]).all() and np.isfinite(pr["conf"]).all()):
-            raise AssertionError(f"pred {i} is not finite")
-        if not (pr["conf"] >= 1.0).all():
-            raise AssertionError(f"pred {i} has conf < 1")
+    if order != list(range(FRAMES_512)):
+        raise AssertionError(f"streaming frame order {order}")
+    check_preds("slice", preds, FRAMES_512, HW_512)
     for name in _kernels.KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -575,18 +647,17 @@ def phase_slice(records, card, profile_out=None):
         f"{statistics.median(fps):.3f} FPS over {TIMED_RUNS} runs "
         f"{[round(f, 3) for f in fps]} on {card}")
     if profile_out:
-        profile_slice(lambda: api.reconstruct_video(model, cfg, frames,
+        write_profile(f"one 512x384 BF16 {FRAMES_512}-frame run",
+                      lambda: api.reconstruct_video(model, cfg, frames,
                                                     config.BF16, chunk=16),
                       FRAMES_512 / statistics.median(fps) * 1e3, card,
                       profile_out)
-    del model
-    torch.cuda.empty_cache()
 
 
-def profile_slice(run, wall_ms, card, out):
-    """One run under torch.profiler: device time and launches by kernel
-    name, and the union of the device intervals against the profiled run's
-    wall and against `wall_ms`, the unprofiled median wall."""
+def device_profile(run):
+    """One call of run() under torch.profiler: (device busy ms, the union
+    of the kernel intervals; profiled wall ms; {kernel name: (ms,
+    launches)}; device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -602,7 +673,7 @@ def profile_slice(run, wall_ms, card, out):
     spans = []
     for e in dev_events:
         tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
         spans.append((e.time_range.start, e.time_range.end))
     spans.sort()
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -615,15 +686,22 @@ def profile_slice(run, wall_ms, card, out):
             cur_e = max(cur_e, b)
     if cur_e is not None:
         busy_us += cur_e - cur_s
-    busy_ms = busy_us / 1e3
-    lines = [f"profile of one 512x384 BF16 {FRAMES_512}-frame run on {card}",
-             f"device events {len(dev_events)}, busy (union) {busy_ms:.3f} ms,"
+    return busy_us / 1e3, prof_wall_ms, by_name, len(dev_events)
+
+
+def write_profile(what, run, wall_ms, card, out):
+    """One run under torch.profiler: device time and launches by kernel
+    name, and the union of the device intervals against the profiled run's
+    wall and against `wall_ms`, the unprofiled median wall."""
+    busy_ms, prof_wall_ms, by_name, n_events = device_profile(run)
+    lines = [f"profile of {what} on {card}",
+             f"device events {n_events}, busy (union) {busy_ms:.3f} ms,"
              f" profiled wall {prof_wall_ms:.3f} ms (busy "
              f"{busy_ms / prof_wall_ms:.3f}), unprofiled median wall "
              f"{wall_ms:.3f} ms (busy {busy_ms / wall_ms:.3f}, idle "
              f"{1 - busy_ms / wall_ms:.3f})", "ms\tlaunches\tkernel"]
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        lines.append(f"{tot / 1e3:.3f}\t{cnt}\t{name}")
+        lines.append(f"{tot:.3f}\t{cnt}\t{name}")
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -632,48 +710,341 @@ def profile_slice(run, wall_ms, card, out):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: card against CPU, end to end
+# phases 5-7: offline mode, the frame-at-a-time engine, the serving modes
+# ---------------------------------------------------------------------------
+
+def offline_launches(cfg, n, n_pairs, chunk=8):
+    """Kernel launches of one offline reconstruction of n frames over
+    n_pairs pairs: K3 and K2 by stage, K1 in all. The encoder runs once on
+    all n frames; a decode (both decoders, self and cross attention in
+    every block) runs per pairwise chunk, for the first pair, and twice a
+    greedy round (candidate scoring, then the chosen pair); the value
+    encoder after each pair (RoPE there only with mem_pos_enc); one memory
+    read a round."""
+    rounds = n - 2
+    decodes = -(-n_pairs // chunk) + 1 + 2 * rounds
+    dec = 4 * cfg.dust3r.dec.depth
+    val = cfg.value_enc_depth * (1 + rounds)
+    return {"rope2d": {"encoder": cfg.dust3r.enc.depth, "decoder": dec * decodes,
+                       "value encoder": val if cfg.mem_pos_enc else 0},
+            "sdpa": {"encoder": cfg.dust3r.enc.depth, "decoder": dec * decodes,
+                     "value encoder": val},
+            "memory_read": rounds}
+
+
+class ShapeTally:
+    """Counts K3 and K2 launches by the (batch, heads) of their first
+    operand while it is entered."""
+
+    def __enter__(self):
+        from spann3r_torch.ops import attention, rope
+        self.mods = (rope, attention)
+        self.orig = (rope._launch, attention.sdpa_cuda)
+        self.counts = {"rope2d": {}, "sdpa": {}}
+
+        def add(kernel, t):
+            key = tuple(t.shape[:2])
+            self.counts[kernel][key] = self.counts[kernel].get(key, 0) + 1
+
+        def rope_launch(ops, *a, **kw):
+            add("rope2d", ops[0][0])
+            return self.orig[0](ops, *a, **kw)
+
+        def sdpa_cuda(q, *a, **kw):
+            add("sdpa", q)
+            return self.orig[1](q, *a, **kw)
+
+        rope._launch, attention.sdpa_cuda = rope_launch, sdpa_cuda
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0]._launch, self.mods[1].sdpa_cuda = self.orig
+
+    def by_stage(self, kernel, cfg, n):
+        """Launches by stage: the decoders have their own head count; of
+        the rest, the encoder runs on all n frames, the value encoder on
+        one."""
+        out = {"encoder": 0, "decoder": 0, "value encoder": 0}
+        for (b, h), c in self.counts[kernel].items():
+            stage = ("decoder" if h == cfg.dust3r.dec.num_heads else
+                     "encoder" if b == n else "value encoder")
+            out[stage] += c
+        return out
+
+
+def phase_offline(records, cfg, model, card, profile_out=None):
+    from spann3r_torch import api, config
+    from spann3r_torch.models.pairs import make_pairs
+    from spann3r_torch.ops import _kernels
+
+    n = FRAMES_OFFLINE
+    frames = make_frames(n, HW_512, seed=SEED + 2).astype(np.float32)
+    frames = frames / 127.5 - 1.0
+    run = lambda: api.reconstruct_video(model, cfg, frames, config.BF16,
+                                        offline=True, scene_graph="complete")
+    with ShapeTally() as tally:
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        preds, order, _ = run()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+    check_preds("offline", preds, n, HW_512)
+    if sorted(order) != list(range(n)):
+        raise AssertionError(f"offline frame order {order} is not a "
+                             f"permutation of 0..{n - 1}")
+    want = offline_launches(cfg, n, len(make_pairs(n, "complete")))
+    stages = {k: tally.by_stage(k, cfg, n) for k in ("rope2d", "sdpa")}
+    log(f"[offline] {n} frames 512x384 BF16, complete graph: order {order}; "
+        f"launches {counts}; by stage {stages}; by (batch, heads) "
+        f"{tally.counts}")
+    for k in ("rope2d", "sdpa"):
+        if stages[k] != want[k] or counts[k] != sum(want[k].values()):
+            raise AssertionError(f"offline {k} launches {counts[k]} by stage "
+                                 f"{stages[k]}, expected {want[k]}")
+    if counts["memory_read"] != want["memory_read"]:
+        raise AssertionError(f"offline memory_read launches "
+                             f"{counts['memory_read']}, expected "
+                             f"{want['memory_read']}")
+    # the pairwise scan's decoder chunks of 8, and the encoder on all n
+    for field, key in (("offline", (8, cfg.dust3r.dec.num_heads)),
+                       ("offline_encoder", (n, cfg.dust3r.enc.num_heads))):
+        for name in ("rope2d", "sdpa"):
+            rec = records[name][field]
+            rec["launches_per_run"] = tally.counts[name].get(key, 0)
+            lib_s = ("null" if rec["library_ms"] is None
+                     else f"{rec['library_ms']:.4f}")
+            log(f"[kernels] {name:11s} record {rec['shape']}: kernel_ms="
+                f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} library_ms="
+                f"{lib_s} bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+                f"launches_per_run={rec['launches_per_run']} (offline run)")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"[offline] preds ok: {n} x (1,{HW_512[0]},{HW_512[1]},3) finite, "
+        f"conf >= 1; wall per clip median {statistics.median(walls):.3f} ms "
+        f"over 3 runs after a first one {[round(x, 3) for x in walls]}")
+    if profile_out:
+        root, ext = os.path.splitext(profile_out)
+        write_profile(f"one 512x384 BF16 {n}-frame offline run", run,
+                      statistics.median(walls), card,
+                      f"{root}_offline{ext or '.txt'}")
+
+
+def phase_engine(cfg, model):
+    """The frame-at-a-time engine against the chunked run on 8 frames."""
+    from spann3r_torch import config
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.ops import _kernels
+
+    n = FRAMES_ENGINE
+    frames = make_frames(n, HW_512, seed=SEED + 3)
+    engine = sp.InferenceEngine(model, cfg, HW_512, config.BF16)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out = engine.run(frames)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    preds = [{k: v.float().cpu().numpy() for k, v in p.items()} for p in out]
+    check_preds("engine", preds, n, HW_512)
+    if not counts["memory_read"] == engine.stats["memory_reads"] == n - 2 \
+            or min(counts.values()) <= 0:
+        raise AssertionError(f"engine launches {counts}, memory reads "
+                             f"{engine.stats['memory_reads']}")
+    video = sp.InferenceEngine(model, cfg, HW_512, config.BF16).run_video(frames)
+    worst, ratio = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(preds, video)):
+        for k in b:
+            err = np.abs(a[k] - b[k])
+            worst = max(worst, float(err.max()))
+            ratio = max(ratio, float((err / (ENGINE_TOL * (1 + np.abs(b[k]))))
+                                     .max()))
+    log(f"[engine] run (a frame at a time) vs run_video, {n} frames 512x384 "
+        f"BF16: launches {counts}; max abs diff {worst:.3e}, "
+        f"{ratio:.3f} of the bound {ENGINE_TOL}*(1+|run_video|)")
+    if ratio > 1.0:
+        raise AssertionError("engine run disagrees with run_video")
+
+
+def phase_serving(cfg, model, card):
+    """The slice under the serving settings, against the plain BF16 one."""
+    import copy
+
+    from spann3r_torch import api, config
+    from spann3r_torch.ops import quant
+
+    frames = make_frames(FRAMES_512, HW_512)
+
+    def run(m, prec):
+        return api.reconstruct_video(m, cfg, frames, prec, chunk=16)[0]
+
+    def wall_ms(m, prec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(m, prec)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def measure(label, m, prec):
+        """Preds of a first run, then walls of 3 runs taken in turns with 3
+        plain BF16 runs (P S S P P S; the host's pace drifts within a call),
+        and one profiled run."""
+        preds = run(m, prec)
+        check_preds(f"serving {label}", preds, FRAMES_512, HW_512)
+        walls = {"P": [], "S": []}
+        for who in "PSSPPS":
+            walls[who].append(wall_ms(*((model, config.BF16) if who == "P"
+                                        else (m, prec))))
+        busy, _, by_name, _ = device_profile(lambda: run(m, prec))
+        cast = [(ms, c) for name, (ms, c) in by_name.items()
+                if "copy" in name.lower()]
+        return preds, (f"device busy {busy:.3f} ms per run, copy kernels "
+                       f"{sum(x[0] for x in cast):.3f} ms "
+                       f"({sum(x[1] for x in cast)} launches), wall median "
+                       f"{statistics.median(walls['S']):.3f} ms "
+                       f"{[round(x, 3) for x in walls['S']]} against plain "
+                       f"BF16 {statistics.median(walls['P']):.3f} ms "
+                       f"{[round(x, 3) for x in walls['P']]} in turns")
+
+    def diff(preds, ref):
+        """max |a - b| and the median of |a - b| / mean|b| of the
+        pointmaps."""
+        rel, worst = [], 0.0
+        for a, b in zip(preds, ref):
+            for k in b:
+                worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+                if k != "conf":
+                    rel.append((np.abs(a[k] - b[k]) / np.abs(b[k]).mean()).ravel())
+        return worst, float(np.median(np.concatenate(rel)))
+
+    plain, line = measure("bf16", model, config.BF16)
+    run_to_run = diff(run(model, config.BF16), plain)[0]
+    log(f"[serving] plain BF16: {line}; two plain runs differ by at most "
+        f"{run_to_run:.3e}")
+    settings = (
+        ("cast_serving_weights_", lambda: quant.cast_serving_weights_(
+            copy.deepcopy(model)), config.BF16),
+        ("BF16_FAST", lambda: model, config.BF16_FAST),
+        ("int8 weight-only", lambda: quant.quantize_linear_weights_(
+            copy.deepcopy(model)), config.BF16),
+        ("int8 weights + activations", lambda: quant.quantize_linear_weights_(
+            copy.deepcopy(model), act_min_rows=quant.INT8_ACT_ROWS),
+         config.BF16))
+    for label, make, prec in settings:
+        m = make()
+        preds, line = measure(label, m, prec)
+        worst, rel = diff(preds, plain)
+        log(f"[serving] {label}: {quant.count_quantized(m)} int8 matrices; "
+            f"{FRAMES_512} preds finite, conf >= 1; vs plain BF16 max abs "
+            f"diff {worst:.3e}, median rel pts3d diff {rel:.3e}; {line} on "
+            f"{card}")
+        if label.startswith("int8") and quant.count_quantized(m) == 0:
+            raise AssertionError(f"{label}: no matrix was quantised")
+        if label == "cast_serving_weights_" and worst > run_to_run:
+            raise AssertionError(
+                f"bf16-stored weights changed the outputs by {worst:.3e}, "
+                f"more than two plain runs differ ({run_to_run:.3e})")
+        if m is not model:
+            del m
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: card against CPU, end to end
 # ---------------------------------------------------------------------------
 
 def phase_parity():
+    """Streaming and offline, on the card (kernels) and on the CPU (plain
+    versions), the same weights: the same frame order, preds within
+    E2E_TOL."""
     from spann3r_torch import api, config
+    from spann3r_torch.models import offline
     from spann3r_torch.models import spann3r as sp
 
     cfg = config.Spann3RConfig()
     frames = make_frames(4, HW_224, seed=SEED + 1)
-    model_cpu = sp.build_spann3r(cfg, "cpu", torch.Generator().manual_seed(SEED))
+    normed = frames.astype(np.float32) / 127.5 - 1.0
+    # the greedy scores of each round, to tell a near tie from a fault
+    scores = []
+    orig_score = offline._score_candidates
+
+    def recording(*a, **kw):
+        out = orig_score(*a, **kw)
+        scores.append(out.float().cpu().numpy())
+        return out
+
+    def both(model):
+        video = api.reconstruct_video(model, cfg, frames, config.FP32)
+        offline._score_candidates = recording
+        try:
+            scores.clear()
+            off = api.reconstruct_video(model, cfg, normed, config.FP32,
+                                        offline=True)
+        finally:
+            offline._score_candidates = orig_score
+        return video, off, [np.sort(x)[-2:] for x in scores]
+
     model_gpu = sp.build_spann3r(cfg, "cuda", torch.Generator().manual_seed(SEED))
-    preds_gpu, _, _ = api.reconstruct_video(model_gpu, cfg, frames, config.FP32)
+    runs_gpu = both(model_gpu)
     del model_gpu
     torch.cuda.empty_cache()
+    model_cpu = sp.build_spann3r(cfg, "cpu", torch.Generator().manual_seed(SEED))
     t0 = time.perf_counter()
-    preds_cpu, _, _ = api.reconstruct_video(model_cpu, cfg, frames, config.FP32)
-    log(f"[parity] CPU run took {time.perf_counter() - t0:.1f} s")
-    if len(preds_cpu) != len(preds_gpu):
-        raise AssertionError("card and CPU give different pred counts")
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(preds_gpu, preds_cpu)):
-        for key in a:
-            err = np.abs(a[key] - b[key])
-            worst = max(worst, float(err.max()))
-            if not (err <= E2E_TOL * (1.0 + np.abs(b[key]))).all():
-                raise AssertionError(f"pred {i} {key}: card vs CPU max err "
-                                     f"{float(err.max()):.3e} > {E2E_TOL}")
-    log(f"[parity] 224x224 FP32 4 frames: card (kernels) vs CPU (plain) "
-        f"max abs err {worst:.3e} <= {E2E_TOL} ok")
+    runs_cpu = both(model_cpu)
+    log(f"[parity] CPU runs took {time.perf_counter() - t0:.1f} s")
+    for label, (preds_gpu, order_gpu, _), (preds_cpu, order_cpu, _) in (
+            ("streaming", runs_gpu[0], runs_cpu[0]),
+            ("offline", runs_gpu[1], runs_cpu[1])):
+        if order_gpu != order_cpu:
+            raise AssertionError(
+                f"{label}: card frame order {order_gpu} != CPU {order_cpu}; "
+                f"best two scores a round: card {runs_gpu[2]} CPU "
+                f"{runs_cpu[2]}")
+        if len(preds_cpu) != len(preds_gpu):
+            raise AssertionError(f"{label}: card and CPU give different pred "
+                                 f"counts")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(preds_gpu, preds_cpu)):
+            if set(a) != set(b):
+                raise AssertionError(f"{label} pred {i}: keys {sorted(a)} vs "
+                                     f"{sorted(b)}")
+            for key in a:
+                err = np.abs(a[key] - b[key])
+                worst = max(worst, float(err.max()))
+                if not (err <= E2E_TOL * (1.0 + np.abs(b[key]))).all():
+                    raise AssertionError(f"{label} pred {i} {key}: card vs "
+                                         f"CPU max err {float(err.max()):.3e}"
+                                         f" > {E2E_TOL}")
+        log(f"[parity] {label} 224x224 FP32 4 frames: card (kernels) vs CPU "
+            f"(plain) frame order {order_gpu} on both, max abs err "
+            f"{worst:.3e} <= {E2E_TOL} ok")
+    gaps = [float(t[-1] - t[-2]) for t in runs_gpu[2] if len(t) > 1]
+    log(f"[parity] offline best-two score gaps a round (card): "
+        f"{[f'{g:.3e}' for g in gaps]}")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="profile one more slice run with torch.profiler "
-                         "and write the summary to FILE")
+                         "and write the summary to FILE, and one more "
+                         "offline run to FILE with _offline before its "
+                         "extension")
     args = ap.parse_args()
     card = phase_card()
     phase_build()
     records = {}
     phase_kernels(records)
-    phase_slice(records, card, args.profile)
+    cfg, model = build_model()
+    phase_slice(records, cfg, model, card, args.profile)
+    phase_offline(records, cfg, model, card, args.profile)
+    phase_engine(cfg, model)
+    phase_serving(cfg, model, card)
+    del model
+    torch.cuda.empty_cache()
     phase_parity()
     print(json.dumps({"kernels": [records[k] for k in ("rope2d", "sdpa",
                                                        "memory_read")]}))

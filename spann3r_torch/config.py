@@ -111,6 +111,7 @@ class Precision:
 
 FP32 = Precision(compute_dtype=torch.float32, head_dtype=torch.float32)
 BF16 = Precision(compute_dtype=torch.bfloat16, head_dtype=torch.float32)
-# bf16 everywhere including the DPT conv stack (not yet served by the port)
+# serving mode: bf16 everywhere, the head convolutions included
+# (`downstream_head` casts its states to head_dtype)
 BF16_FAST = Precision(compute_dtype=torch.bfloat16, head_dtype=torch.bfloat16)
 

@@ -1,7 +1,8 @@
 """Two-view pointmap backbone: patch embed, ViT encoder, dual decoder and
 the two pointmap heads (module keys `patch_embed`, `enc_blocks.{i}`,
 `enc_norm`, `decoder_embed`, `dec_blocks.{i}`, `dec_blocks2.{i}`,
-`dec_norm`, `downstream_head1`, `downstream_head2`)."""
+`dec_norm`, `downstream_head1`, `downstream_head2`), and the two-view
+forward that pairwise inference runs."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -97,3 +98,26 @@ def downstream_head(m: DUSt3R, head_num: int, dec_states: List,
     out = head_apply(getattr(m, f"downstream_head{head_num}"), states, img_hw,
                      cfg)
     return {k: v.float() for k, v in out.items()}
+
+
+@torch.no_grad()
+def forward(m: DUSt3R, img1: torch.Tensor, img2: torch.Tensor,
+            cfg: DUSt3RConfig, prec: Precision = BF16
+            ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Two-view forward: img1, img2 (B, H, W, 3) normalised NHWC ->
+    (res1 {'pts3d', 'conf'}, res2 {'pts3d_in_other_view', 'conf'}), res2's
+    pointmap in view 1's frame. Views of one shape go through the encoder
+    in one batch; views of different shapes are encoded separately."""
+    hw, hw2 = tuple(img1.shape[1:3]), tuple(img2.shape[1:3])
+    b = img1.shape[0]
+    if hw == hw2:
+        feats, pos = encode_image(m, torch.cat([img1, img2]), cfg, prec)
+        f1, f2, pos1, pos2 = feats[:b], feats[b:], pos[:b], pos[b:]
+    else:
+        f1, pos1 = encode_image(m, img1, cfg, prec)
+        f2, pos2 = encode_image(m, img2, cfg, prec)
+    dec1, dec2 = decoder(m, f1, pos1, f2, pos2, cfg, prec)
+    res1 = downstream_head(m, 1, dec1, hw, cfg, prec)
+    res2 = downstream_head(m, 2, dec2, hw2, cfg, prec)
+    res2["pts3d_in_other_view"] = res2.pop("pts3d")
+    return res1, res2

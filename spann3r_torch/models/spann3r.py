@@ -8,7 +8,9 @@ Streaming inference follows the JAX package's chunked scan: each chunk's
 frames go through the encoder in one batch, then a Python loop runs the
 sequential part frame by frame (memory read, dual decoder, attn-head MLPs,
 reference-frame head, value encoder, memory write). The target-frame head
-runs once per video on the carried decoder hook states.
+runs once per video on the carried decoder hook states. The engine also
+takes a stream a frame at a time (`InferenceEngine.step` / `run`), over
+the same pair step, memory read and memory write.
 """
 from __future__ import annotations
 
@@ -241,8 +243,9 @@ def scan_video_chunk(model: Spann3R, cfg: Spann3RConfig, carry: VideoCarry,
 # ---------------------------------------------------------------------------
 
 class InferenceEngine:
-    """Chunked reconstruction of a frame stream with eval memory semantics
-    (cosine dedup, working -> long-term spill, usage-based pruning)."""
+    """Reconstruction of a frame stream with eval memory semantics (cosine
+    dedup, working -> long-term spill, usage-based pruning): chunked over a
+    whole video (`run_video`), or a frame at a time (`step`, `run`)."""
 
     def __init__(self, model: Spann3R, cfg: Spann3RConfig,
                  img_hw: Tuple[int, int], prec: Precision = BF16,
@@ -253,8 +256,113 @@ class InferenceEngine:
         self.img_hw = tuple(img_hw)
         self.batch = batch
         self.device = next(model.parameters()).device
-        self.stats: Dict[str, int] = {}
+        dcfg = cfg.dust3r
+        self.p_tokens = ((self.img_hw[0] // dcfg.patch_size)
+                         * (self.img_hw[1] // dcfg.patch_size))
         self.carry: Optional[VideoCarry] = None
+        self.reset()
+
+    # -- frame at a time -----------------------------------------------------
+
+    def reset(self) -> None:
+        """Start a new stream: no bank (the first pair allocates an empty
+        one), no previous frame."""
+        self.stats: Dict[str, int] = {"memory_reads": 0}
+        self.mem: Optional[MemoryState] = None
+        self._feat_prev: Optional[torch.Tensor] = None
+        self._feat_k2: Optional[torch.Tensor] = None
+        self._last_hooks: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @torch.no_grad()
+    def encode(self, img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """img: (B, H, W, 3) uint8 or normalised float on the model's
+        device -> tokens (B, P, D), positions (B, P, 2)."""
+        return d3.encode_image(self.model.dust3r,
+                               _prep(img, self.prec.compute_dtype),
+                               self.cfg.dust3r, self.prec)
+
+    def put_frame(self, frame) -> torch.Tensor:
+        """Start the copy of one (B, H, W, 3) frame to the model's device:
+        from pinned host memory without waiting, on the card."""
+        t = torch.as_tensor(np.asarray(frame)) if not isinstance(
+            frame, torch.Tensor) else frame
+        if self.device.type != "cuda" or t.device.type == "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @torch.no_grad()
+    def step(self, img: torch.Tensor, want_res2: bool = False
+             ) -> Optional[Dict[str, Optional[Dict[str, torch.Tensor]]]]:
+        """Feed the next frame (on the model's device); returns {'res1':
+        the prediction of the (previous, current) pair's reference frame,
+        'res2': None} as device tensors, or None on the first frame.
+
+        The target-frame head is deferred: the step keeps the decoder's
+        hook states, and `target_prediction()` (or want_res2=True) runs the
+        head on them when a target prediction is wanted."""
+        feat2, pos = self.encode(img)
+        if self._feat_prev is None:
+            self._feat_prev = feat2
+            return None
+        if self._feat_k2 is None:
+            feat_fuse = self._feat_prev
+        else:
+            feat_fuse, self.mem = memory_read(
+                self.model, self.mem, self._feat_k2,
+                attn_thresh=self.cfg.memory.attn_thresh)
+            self.stats["memory_reads"] += 1
+        out = pair_step(self.model, self.cfg, feat_fuse, self._feat_prev,
+                        feat2, pos, self.img_hw, self.prec,
+                        compute_res2=False)
+        if self.mem is None:
+            self.mem = init_memory(self.batch,
+                                   self.cfg.memory.capacity(self.p_tokens),
+                                   self.cfg.attn_head_out,
+                                   dtype=self.prec.compute_dtype,
+                                   device=self.device)
+        self.mem = add_mem_check(self.mem, out.feat_k1,
+                                 out.cur_v + out.feat_k1, self.cfg.memory)
+        self._feat_prev, self._feat_k2 = feat2, out.feat_k2
+        self._last_hooks = out.dec2_hooks
+        return {"res1": out.res1,
+                "res2": self.target_prediction() if want_res2 else None}
+
+    @torch.no_grad()
+    def target_prediction(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The current frame's prediction from the carried decoder hook
+        states (the deferred head, run on demand); None before the second
+        frame."""
+        if self._last_hooks is None:
+            return None
+        return head2_from_hooks(self.model, self.cfg, self._last_hooks,
+                                self.img_hw, self.prec)
+
+    def run(self, frames) -> List[Dict[str, torch.Tensor]]:
+        """frames: (T, B, H, W, 3) uint8 or normalised float (numpy or
+        tensor), fed a frame at a time; the next frame's copy to the device
+        starts before the current step. Returns the `preds` list of
+        `run_video` as fp32 tensors on the device; the target head runs
+        once, at the end of the stream."""
+        self.reset()
+        preds: List[Dict[str, torch.Tensor]] = []
+        pending = self.put_frame(frames[0])
+        for i in range(len(frames)):
+            cur = pending
+            if i + 1 < len(frames):
+                pending = self.put_frame(frames[i + 1])
+            out = self.step(cur)
+            if out is None:
+                continue
+            key = "pts3d" if not preds else "pts3d_in_other_view"
+            preds.append({key: out["res1"]["pts3d"],
+                          "conf": out["res1"]["conf"]})
+        last = self.target_prediction()
+        if last is not None:
+            preds.append({"pts3d_in_other_view": last["pts3d"],
+                          "conf": last["conf"]})
+        return preds
+
+    # -- whole video ---------------------------------------------------------
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         """Start the copy of one output to the host without waiting: pinned

@@ -5,7 +5,9 @@ Parameters live in fp32 in standard PyTorch modules (`nn.Linear`,
 keys and layouts are the reference checkpoint's. The functions here apply
 the numeric policy of the JAX package:
   - `linear` casts the weight to the activation dtype; products accumulate
-    in fp32 (bf16 GEMMs on the card and on the CPU accumulate in fp32);
+    in fp32 (bf16 GEMMs on the card and on the CPU accumulate in fp32); an
+    int8 `QuantLinear` dequantises its weight in the activation dtype, or
+    quantises the activations too on calls with enough rows;
   - `layer_norm` normalises in fp32 and casts back;
   - convolutions run NCHW in the activation dtype;
   - `interpolate_bilinear` resizes in fp32 with align_corners semantics.
@@ -24,9 +26,53 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+class QuantLinear(nn.Module):
+    """An int8 linear for serving (`ops.quant.quantize_linear_weights_`):
+    w_q (out, in) int8 and w_scale (out, 1) fp32, the per-output-channel
+    scale, with the bias of the linear it replaces. `act_min_rows` > 0
+    quantises the activations too, per row, when a call has at least that
+    many rows; 0 keeps every call weight-only."""
+
+    def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[nn.Parameter], act_min_rows: int = 0):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_scale", w_scale)
+        self.bias = bias
+        self.act_min_rows = act_min_rows
+
+
+def _int8_act_linear(m: QuantLinear, x: torch.Tensor) -> torch.Tensor:
+    """Per-row symmetric int8 of x, an int8 x int8 -> int32 product
+    (`torch._int_mm`), then both scales in fp32, as the JAX package's int8
+    activation path computes it. On the card the product needs more than
+    16 rows and K, N multiples of 8; other shapes raise."""
+    k, n = x.shape[-1], m.w_q.shape[0]
+    rows = x.numel() // k
+    if x.device.type == "cuda" and (rows <= 16 or k % 8 or n % 8):
+        raise ValueError(f"the int8 product takes > 16 rows and K, N "
+                         f"multiples of 8 on the card; got {rows} rows, "
+                         f"K={k}, N={n}")
+    xf = x.float()
+    xs = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp(min=1e-12)
+    xq = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
+    o = torch._int_mm(xq.reshape(rows, k), m.w_q.t())
+    y = (o.float().reshape(*x.shape[:-1], n) * xs
+         * m.w_scale.float().reshape(n)).to(x.dtype)
+    return y if m.bias is None else y + m.bias.to(x.dtype)
+
+
+def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x @ W^T + b in x's dtype, for an `nn.Linear` or a `QuantLinear`
+    (weight-only: the weight dequantised in x's dtype as q * scale)."""
+    if isinstance(m, QuantLinear):
+        if m.act_min_rows and x.numel() // x.shape[-1] >= m.act_min_rows:
+            return _int8_act_linear(m, x)
+        w = m.w_q.to(x.dtype) * m.w_scale.to(x.dtype)
+    else:
+        w = m.weight.to(x.dtype)
     b = None if m.bias is None else m.bias.to(x.dtype)
-    return F.linear(x, m.weight.to(x.dtype), b)
+    return F.linear(x, w, b)
 
 
 def layer_norm(m: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

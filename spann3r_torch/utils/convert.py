@@ -4,6 +4,10 @@
 dicts of numpy arrays and returns the port's state dict (reference key
 names), so both packages can run on the same weights:
   - linear {'w': (in, out), 'b'} -> weight (out, in), bias
+  - int8 linear {'w_q': (in, out) int8, 'w_scale': (1, out), 'b'} (the
+    JAX package's quantised pytree) -> a `QuantLinear`'s w_q (out, in)
+    and w_scale (out, 1); load it into a model quantised with
+    `ops.quant.quantize_linear_weights_` at the same min_dim
   - LayerNorm {'scale', 'bias'} -> weight, bias
   - conv HWIO -> OIHW
   - transposed conv: the JAX kernel is HWIO and spatially flipped; it
@@ -26,7 +30,12 @@ def _t(a) -> torch.Tensor:
 
 
 def _lin(sd, prefix, p):
-    sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
+    if "w_q" in p:  # int8: the port's QuantLinear buffers
+        sd[prefix + ".w_q"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p["w_q"], np.int8).T))
+        sd[prefix + ".w_scale"] = _t(np.asarray(p["w_scale"]).T)
+    else:
+        sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
     if p.get("b") is not None:
         sd[prefix + ".bias"] = _t(p["b"])
 

@@ -140,3 +140,71 @@ def test_script_refuses_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.fixture
+def counting_kernels(monkeypatch):
+    """The kernel wrappers' CUDA entry points as counting plain versions
+    that CPU tensors reach, so that a CPU run counts launches as the card
+    would and chip_smoke's ShapeTally sees them."""
+    from spann3r_torch.models import memory as TM
+    from spann3r_torch.ops import _kernels
+
+    def sdpa_cuda(q, k, v, scale):
+        _kernels.LAUNCHES["sdpa"] += 1
+        return attention.sdpa_plain(q, k, v, scale)
+
+    def launch(ops, base, sign, tile=None):
+        _kernels.LAUNCHES["rope2d"] += 1
+        return [rope.rope_2d_plain(x, p, base, sign) for x, p in ops]
+
+    def read(*a):
+        _kernels.LAUNCHES["memory_read"] += 1
+        return memory_read.memory_read_attention_plain(*a)
+
+    monkeypatch.setattr(attention, "sdpa_cuda", sdpa_cuda)
+    monkeypatch.setattr(attention, "sdpa",
+                        lambda q, k, v, s: attention.sdpa_cuda(q, k, v, s))
+    monkeypatch.setattr(rope, "_launch", launch)
+    monkeypatch.setattr(attention, "rope_2d_qk",
+                        lambda q, k, qp, kp, base=100.0, sign=1.0:
+                        tuple(rope._launch([(q, qp), (k, kp)], base, sign)))
+    monkeypatch.setattr(TM, "memory_read_attention", read)
+    _kernels.reset_launches()
+    yield _kernels
+    _kernels.reset_launches()
+
+
+@pytest.mark.parametrize("n,graph", [(5, "complete"), (6, "swin-2"),
+                                     (2, "complete")])
+def test_offline_launch_counts(counting_kernels, n, graph):
+    """chip_smoke's offline launch counts (offline_launches) are what an
+    offline run launches, stage by stage: a tiny model whose decoders have
+    their own head count, a last pairwise chunk that is short (swin-2), and
+    the two-frame clip with no greedy round."""
+    from spann3r_torch import config as C
+    from spann3r_torch.models import offline, pairs
+    from spann3r_torch.models import spann3r as S
+
+    cfg = C.Spann3RConfig(
+        dust3r=C.DUSt3RConfig(img_size=(32, 32), patch_size=16,
+                              enc=C.ViTConfig(dim=64, depth=2, num_heads=4),
+                              dec=C.ViTConfig(dim=48, depth=3, num_heads=2),
+                              head_type="linear"),
+        value_enc_depth=2, value_enc_dim=64, value_enc_heads=4,
+        attn_head_in=64 + 48, attn_head_out=64)
+    model = S.build_spann3r(cfg, "cpu", torch.Generator().manual_seed(0))
+    frames = _randn(n, 32, 32, 3, seed=20) * 0.3
+    wrappers = (rope._launch, attention.sdpa_cuda)
+    with chip_smoke.ShapeTally() as tally:
+        _, _, order = offline.offline_reconstruction(model, frames, cfg,
+                                                     (32, 32), graph)
+    assert sorted(order) == list(range(n))
+    want = chip_smoke.offline_launches(cfg, n, len(pairs.make_pairs(n, graph)))
+    counts = counting_kernels.launch_counts()
+    assert counts["memory_read"] == want["memory_read"] == n - 2
+    for k in ("rope2d", "sdpa"):
+        assert tally.by_stage(k, cfg, n) == want[k]
+        assert counts[k] == sum(want[k].values())
+    assert want["rope2d"]["value encoder"] == 0 < want["sdpa"]["value encoder"]
+    assert (rope._launch, attention.sdpa_cuda) == wrappers  # undone on exit

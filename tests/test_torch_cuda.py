@@ -183,3 +183,72 @@ def test_memory_read_column_sums_are_deterministic(dev):
             for _ in range(3)]
     for r in runs[1:]:
         assert torch.equal(r, runs[0])
+
+
+# ---------------------------------------------------------------------------
+# offline mode's decoder shapes and the int8 serving path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("attn", ["self", "cross"])
+def test_offline_decoder_batch(dev, dt, attn):
+    """K3 then K2 as the offline decoder runs them: batch 8, 12 heads,
+    q and k from one qkv projection (self) or from two projections
+    (cross), positions expanded over the batch with stride 0 and shared by
+    q and k (one K3 launch for both)."""
+    from spann3r_torch.models.vit import patch_positions
+    dtype, tol = DTYPES[dt]
+    b, h, n = 8, 12, 96
+    pos = patch_positions(8, 12, dev)[None].expand(b, -1, -1)
+    if attn == "self":
+        qkv = _randn((b, n, 3, h, 64), dtype, dev, 30).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+    else:
+        q, k, v = (_randn((b, n, h * 64), dtype, dev, s).view(b, n, h, 64)
+                   .transpose(1, 2) for s in (31, 32, 33))
+    before = dict(_kernels.LAUNCHES)
+    qr, kr = rope.rope_2d_qk(q, k, pos, pos, 100.0)
+    out = attention.sdpa(qr, kr, v, 0.125)
+    assert _kernels.LAUNCHES["rope2d"] == before["rope2d"] + 1
+    assert _kernels.LAUNCHES["sdpa"] == before["sdpa"] + 1
+    rope_tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    qp = rope.rope_2d_plain(q, pos, 100.0)
+    kp = rope.rope_2d_plain(k, pos, 100.0)
+    _assert_close(qr, qp, rope_tol)
+    _assert_close(kr, kp, rope_tol)
+    _assert_close(out, attention.sdpa_plain(qr, kr, v, 0.125),
+                  max(tol, 1e-4) if dt == "fp32" else tol)
+    # each batch item alone gives the same bits as in the batch
+    q1, k1 = rope.rope_2d_qk(q[3:4], k[3:4], pos[3:4], pos[3:4], 100.0)
+    assert torch.equal(q1, qr[3:4]) and torch.equal(k1, kr[3:4])
+    assert torch.equal(attention.sdpa(q1, k1, v[3:4], 0.125), out[3:4])
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_int8_linear_on_the_card(dev, dt):
+    """The int8 linear on the card against the same module on the CPU:
+    int8 activations (torch._int_mm, exact int32 sums, then the same fp32
+    scaling) to one rounding of the output dtype, weight-only to the GEMM
+    tolerance; shapes the int8 product does not take raise."""
+    from spann3r_torch.ops import layers, quant
+    dtype, tol = DTYPES[dt]
+    w = _randn((1024, 768), torch.float32, "cpu", 40) * 0.02
+    b = _randn((1024,), torch.float32, "cpu", 41) * 0.01
+    x = _randn((2, 768, 768), dtype, "cpu", 42)
+    for rows, want_tol in ((quant.INT8_ACT_ROWS, 1e-6 if dt == "fp32" else 8e-3),
+                           (0, max(tol, 1e-4))):
+        q, s = quant.quantize_weight(w)
+        m = layers.QuantLinear(q, s, torch.nn.Parameter(b.clone()), rows)
+        with torch.no_grad():
+            want = layers.linear(m, x)
+            got = layers.linear(m.to(dev), x.to(dev))
+        assert got.dtype == dtype
+        _assert_close(got.cpu(), want, want_tol)
+    with torch.no_grad():
+        m = layers.QuantLinear(*quant.quantize_weight(w), None, 1).to(dev)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            layers.linear(m, x[0, :16].to(dev))          # 16 rows
+        m = layers.QuantLinear(*quant.quantize_weight(w[:, :764]), None,
+                               1).to(dev)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            layers.linear(m, x[0, :, :764].to(dev))      # K = 764

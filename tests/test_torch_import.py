@@ -23,7 +23,9 @@ MODULES = [
     "spann3r_torch.ops.memory_read", "spann3r_torch.models.vit",
     "spann3r_torch.models.heads", "spann3r_torch.models.dust3r",
     "spann3r_torch.models.memory", "spann3r_torch.models.spann3r",
-    "spann3r_torch.utils.convert",
+    "spann3r_torch.utils.convert", "spann3r_torch.models.pairs",
+    "spann3r_torch.models.inference", "spann3r_torch.models.offline",
+    "spann3r_torch.ops.quant",
 ]
 
 

@@ -258,9 +258,3 @@ def test_run_video_bf16():
     ref = JS.InferenceEngine(params, jcfg, HW["dpt"], JC.BF16).run_video(frames, chunk=3)
     preds = TS.InferenceEngine(model, tcfg, HW["dpt"], TC.BF16).run_video(frames, chunk=3)
     _compare_preds(preds, ref, BF16_TOL)
-
-
-def test_offline_mode_not_ported():
-    _, tcfg, _, _, model = _models("dpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAPI.reconstruct_video(model, tcfg, _frames("dpt", t=2), offline=True)
