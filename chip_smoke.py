@@ -42,9 +42,23 @@ Phases, each printing its results; any failure raises and exits non-zero:
                BF16 slice (cast weights: none beyond what two plain runs
                differ by), device busy time and copy kernels of one
                profiled run, and the median wall of 3 runs;
-  8. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
+  8. entry   - the port's entry points on the same model: the bench
+               (spann3r_torch.bench.run, 512x384 BF16, one stream, 32
+               frames in chunks of 16, 3 reps: its JSON line), the demo
+               (demo.main at --resolution 512 on an 8-frame folder the phase
+               writes: reconstruction, the focal on the card, the PLY and
+               transforms.json read back) and the eval (eval.main on two
+               SynthRoom scenes at 224, seq_len 16, kf_every 2, its ICP and
+               metrics on EVAL_METRIC_POINTS of each scene's points: finite
+               metrics, seconds per scene split into reconstruction and
+               ICP + metrics); each with its kernel launches, counted from
+               0. The demo and eval CLIs need PIL and cv2: without them
+               the phase fails and names the missing one;
+  9. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
                offline: the card (kernels) against the CPU (plain
-               versions), the same frame order, tolerance 1e-3.
+               versions), the same frame order, tolerance 1e-3; and the
+               eval pipeline (evaluate_scene) on a 4-frame BoxRoomBackend
+               scene, its aligned points within the same tolerance.
 Phase 3 also runs K2 and K3 at the offline shapes: the encoder on 8 frames,
 the decoder at the pairwise scan's batch of 8 and at the candidate
 batches of the greedy rounds (6 down to 2, checked, not timed), positions
@@ -75,6 +89,24 @@ FRAMES_OFFLINE = 8
 # not used yet, n - 2 down to 1 (batch 1 is the streaming decoder's)
 CANDIDATE_BATCHES = tuple(range(2, FRAMES_OFFLINE - 1))
 FRAMES_ENGINE = 8
+FRAMES_DEMO = 8
+# the entry phase's bench: 512x384 BF16, one stream (the bench's defaults
+# but for the frames, the chunk and the reps)
+BENCH_FLAGS = ("--frames", "32", "--chunk", "16", "--reps", "3")
+# the keys of the bench's JSON line (bench.py's, plus the card's name)
+BENCH_KEYS = frozenset({"metric", "value", "unit", "vs_baseline",
+                        "ms_per_frame", "mfu_pct", "streams", "precision",
+                        "sync", "reps", "fps_spread", "device"})
+# the eval's SynthRoom scenes: 16 frames, every second one kept
+EVAL_SCENES, EVAL_SEQ_LEN, EVAL_KF_EVERY = 2, 16, 2
+# the points of each scene that the eval's ICP and metrics take in this run
+# (the CLI takes all of a scene's masked points, ~400,000 at 224 x 224 x 8
+# frames): random weights leave the aligned prediction far from the GT,
+# where the nearest-neighbour queries of ICP, normals, accuracy and
+# completion cost the card's host ~20-35 s a scene on all the points. The
+# subsample keeps the host work that checks nothing on the card out of the
+# phase's time; ICP runs on it as the CLI runs it.
+EVAL_METRIC_POINTS = 4096
 TIMED_RUNS = 5
 HW_512 = (384, 512)
 HW_224 = (224, 224)
@@ -953,7 +985,198 @@ def phase_serving(cfg, model, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: card against CPU, end to end
+# phase 8: the entry points
+# ---------------------------------------------------------------------------
+
+def missing_host_packages():
+    """Which of the image packages the datasets and PnP import (PIL, cv2)
+    this host lacks."""
+    import importlib.util
+    return [m for m in ("PIL", "cv2") if importlib.util.find_spec(m) is None]
+
+
+def boxroom_batch(n, hw, seed=SEED):
+    """One collated scene {'img', 'pts3d', 'valid_mask', 'camera_pose'},
+    each (n, 1, ...), from BoxRoomBackend renders at hw: a camera orbiting
+    a target in a checkerboard room, images normalised to [-1, 1], world
+    points from the exact depth and pose. numpy only: the views of
+    SynthRoom without its PIL resampling."""
+    from spann3r_torch.habitat_gen.backends import BoxRoomBackend
+    from spann3r_torch.habitat_gen.geometry import (
+        UP, compute_camera_intrinsics, compute_camera_pose_opencv_convention,
+        look_at_for_habitat)
+    from spann3r_torch.utils.geometry import (
+        depthmap_to_absolute_camera_coordinates)
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    backend = BoxRoomBackend(resolution=hw, hfov=60.0, size=(6.0, 3.0, 7.0),
+                             checker=0.6, seed=seed)
+    f, cu, cv = compute_camera_intrinsics(h, w, 60.0)
+    k = np.array([[f, 0, cu], [0, f, cv], [0, 0, 1]], np.float32)
+    target = np.array([3.0, 1.5, -3.5])
+    theta0 = rng.uniform(0.0, 2 * np.pi)
+    out = {"img": [], "pts3d": [], "valid_mask": [], "camera_pose": []}
+    for t in np.linspace(0.0, 1.0, n):
+        ang = theta0 + np.deg2rad(90.0) * t
+        eye = np.array([target[0] + 1.5 * np.cos(ang), 1.4 + 0.3 * t,
+                        target[2] + 1.5 * np.sin(ang)])
+        orientation, _ = look_at_for_habitat(eye, target, UP)
+        obs = backend.render(eye, orientation)
+        r, tr = compute_camera_pose_opencv_convention(eye, orientation)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3], pose[:3, 3] = r, tr
+        pts, valid = depthmap_to_absolute_camera_coordinates(obs["depth"], k,
+                                                             pose)
+        out["img"].append((obs["color"].astype(np.float32) / 255.0 - 0.5) / 0.5)
+        out["pts3d"].append(pts)
+        out["valid_mask"].append(valid)
+        out["camera_pose"].append(pose)
+    return {key: np.stack(v)[:, None] for key, v in out.items()}
+
+
+def check_bench_line(line):
+    """The bench's JSON line: bench.py's keys and the card's name, FPS > 0,
+    0 < mfu_pct < 100."""
+    if set(line) != BENCH_KEYS:
+        raise AssertionError(f"bench line keys {sorted(line)}, expected "
+                             f"{sorted(BENCH_KEYS)}")
+    if not line["value"] > 0:
+        raise AssertionError(f"bench FPS {line['value']}")
+    if line["mfu_pct"] is None or not 0 < line["mfu_pct"] < 100:
+        raise AssertionError(f"bench mfu_pct {line['mfu_pct']}")
+
+
+def launched(label, fn):
+    """fn() with every kernel's count set to 0 just before it and read just
+    after: (its result, the counts); fails if a kernel never launched."""
+    from spann3r_torch.ops import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"{label}: a kernel was never launched: {counts}")
+    return out, counts
+
+
+def subsampled(scene_metrics, n):
+    """scene_metrics on n of a scene's masked points, the same n of the
+    prediction and of the GT, drawn at random from SEED."""
+    def run(pts_m, gts_m, threshold):
+        keep = np.random.default_rng(SEED).choice(
+            len(pts_m), min(n, len(pts_m)), replace=False)
+        return scene_metrics(pts_m[keep], gts_m[keep], threshold)
+    return run
+
+
+def phase_entry(cfg, model, card):
+    """bench, demo and eval through their entry points on the full-width
+    model (its weights cast for serving by the bench, as the CLIs cast
+    them under BF16)."""
+    import tempfile
+    from unittest import mock
+
+    from spann3r_torch import bench, config, demo
+    from spann3r_torch import eval as eval_cli
+    from spann3r_torch.datasets import SynthRoom
+    from spann3r_torch.utils.export import read_ply
+    from spann3r_torch.utils.geometry import estimate_focal_weiszfeld
+
+    t_phase = time.perf_counter()
+    missing = missing_host_packages()
+    if missing:
+        raise AssertionError(f"[entry] the demo and eval CLIs need "
+                             f"{', '.join(missing)}, missing on this host")
+    import cv2
+    log("[entry] host packages PIL, cv2: present")
+    loaded = lambda args: (model, cfg, config.BF16)
+
+    # 1. the bench, in process
+    t0 = time.perf_counter()
+    line, counts = launched("bench", lambda: bench.run(
+        bench.get_args_parser().parse_args(BENCH_FLAGS), cfg, model))
+    check_bench_line(line)
+    flops_t = bench.transformer_flops_per_frame(cfg, HW_512, 1)
+    flops_h = bench.head_flops_per_frame(model, cfg, HW_512, 1, config.BF16)
+    log(f"[entry] bench {json.dumps(line)}")
+    log(f"[entry] bench launches {counts}; FLOPs per frame: transformer "
+        f"stacks + memory read {flops_t:.4e}, head {flops_h:.4e}; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 2. demo.main on an 8-frame folder at --resolution 512
+        folder = os.path.join(tmp, "frames", "entry_scene")
+        os.makedirs(folder)
+        for i, f in enumerate(make_frames(FRAMES_DEMO, (480, 640),
+                                          seed=SEED + 4)[:, 0]):
+            cv2.imwrite(os.path.join(folder, f"{i:03d}.jpg"), f[..., ::-1])
+        demo_args = demo.get_args_parser().parse_args(
+            ["--demo_path", folder, "--save_path", os.path.join(tmp, "demo"),
+             "--resolution", "512", "--kf_every", "1"])
+        t0 = time.perf_counter()
+        with mock.patch.object(demo, "load_model", loaded):
+            (out_dir, focal, fps), counts = launched(
+                "demo", lambda: demo.main(demo_args))
+        wall = time.perf_counter() - t0
+        plys = [f for f in os.listdir(out_dir) if f.endswith(".ply")]
+        pts, cols = read_ply(os.path.join(out_dir, plys[0]))
+        with open(os.path.join(out_dir, "transforms.json")) as fh:
+            n_tj = len(json.load(fh)["frames"])
+        npy = [f for f in os.listdir(out_dir) if f.endswith(".npy")][0]
+        pts0 = np.load(os.path.join(out_dir, npy), allow_pickle=True).item()[
+            "pts_all"][:1]
+        h, w = pts0.shape[1:3]
+        # the focal estimator's plain run on the CPU, on the same pointmap
+        focal_cpu = float(estimate_focal_weiszfeld(
+            torch.from_numpy(pts0), torch.tensor([[w / 2.0, h / 2.0]]))[0])
+        if not (len(pts) > 0 and np.isfinite(pts).all() and n_tj == FRAMES_DEMO
+                and np.isfinite(focal) and focal >= 0
+                and abs(focal - focal_cpu) <= 1e-4 * (1.0 + abs(focal_cpu))):
+            raise AssertionError(f"demo: {len(pts)} PLY points, {n_tj} "
+                                 f"transforms.json frames, focal {focal} "
+                                 f"(CPU {focal_cpu})")
+        log(f"[entry] demo {w}x{h} BF16 {FRAMES_DEMO} frames: wall "
+            f"{wall:.3f} s (reconstruction {fps:.3f} FPS), focal {focal:.4f} "
+            f"on the card, {focal_cpu:.4f} on the CPU (the estimator clips "
+            f"at 0), PLY {len(pts)} points read back, transforms.json {n_tj} "
+            f"frames; launches {counts}")
+
+        # 3. eval.main on two SynthRoom scenes at 224, its metrics on a
+        # subsample of each scene's points
+        eval_args = eval_cli.get_args_parser().parse_args(
+            ["--exp_path", tmp, "--exp_name", "eval", "--datasets", "synth",
+             "--resolution", "224", "--synth_seq_len", str(EVAL_SEQ_LEN)])
+        synth = SynthRoom(num_seq=EVAL_SCENES, resolution=224,
+                          seq_len=EVAL_SEQ_LEN, kf_every=EVAL_KF_EVERY,
+                          full_video=True, scene_seed=9)
+        t0 = time.perf_counter()
+        with mock.patch.multiple(
+                eval_cli, load_model=loaded,
+                build_eval_datasets=lambda a: {"synth": synth},
+                scene_metrics=subsampled(eval_cli.scene_metrics,
+                                         EVAL_METRIC_POINTS)):
+            res, counts = launched(
+                "eval", lambda: eval_cli.main(eval_args)["synth"])
+    metrics = np.asarray(res["metrics"], np.float64)
+    if len(res["seconds"]) != EVAL_SCENES or not np.isfinite(metrics).all():
+        raise AssertionError(f"eval: {len(res['seconds'])} scenes, metrics "
+                             f"{metrics}")
+    log(f"[entry] eval 224x224 BF16, {EVAL_SCENES} scenes of "
+        f"{EVAL_SEQ_LEN // EVAL_KF_EVERY} frames: acc {metrics[0]:.4f} comp "
+        f"{metrics[1]:.4f} nc1 {metrics[2]:.4f} nc2 {metrics[3]:.4f}; seconds "
+        f"per scene (reconstruction, ICP + metrics on {EVAL_METRIC_POINTS} "
+        f"of the scene's points) "
+        f"{[(round(a, 3), round(b, 3)) for a, b in res['seconds']]}; wall "
+        f"{time.perf_counter() - t0:.1f} s with the warm-up; launches "
+        f"{counts}")
+    log(f"[entry] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: card against CPU, end to end
 # ---------------------------------------------------------------------------
 
 def phase_parity():
@@ -963,9 +1186,11 @@ def phase_parity():
     from spann3r_torch import api, config
     from spann3r_torch.models import offline
     from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.tools.eval_pipeline import evaluate_scene
 
     cfg = config.Spann3RConfig()
     frames = make_frames(4, HW_224, seed=SEED + 1)
+    eval_s = []
     normed = frames.astype(np.float32) / 127.5 - 1.0
     # the greedy scores of each round, to tell a near tie from a fault
     scores = []
@@ -976,7 +1201,12 @@ def phase_parity():
         scores.append(out.float().cpu().numpy())
         return out
 
+    eval_batch = boxroom_batch(4, HW_224, seed=SEED + 20)
+
     def both(model):
+        t0 = time.perf_counter()
+        aligned = evaluate_scene(model, cfg, config.FP32, eval_batch)
+        eval_s.append(time.perf_counter() - t0)
         video = api.reconstruct_video(model, cfg, frames, config.FP32)
         offline._score_candidates = recording
         try:
@@ -985,7 +1215,7 @@ def phase_parity():
                                         offline=True)
         finally:
             offline._score_candidates = orig_score
-        return video, off, [np.sort(x)[-2:] for x in scores]
+        return video, off, [np.sort(x)[-2:] for x in scores], aligned
 
     model_gpu = sp.build_spann3r(cfg, "cuda", torch.Generator().manual_seed(SEED))
     runs_gpu = both(model_gpu)
@@ -1021,6 +1251,23 @@ def phase_parity():
         log(f"[parity] {label} 224x224 FP32 4 frames: card (kernels) vs CPU "
             f"(plain) frame order {order_gpu} on both, max abs err "
             f"{worst:.3e} <= {E2E_TOL} ok")
+    # the eval pipeline: the aligned points and GT of the same scene, in
+    # the same frame order
+    (pts_g, gt_g, *_, order_g, _), (pts_c, gt_c, *_, order_c, _) = \
+        runs_gpu[3], runs_cpu[3]
+    if list(order_g) != list(order_c):
+        raise AssertionError(f"eval parity: frame order {order_g} vs {order_c}")
+    worst = 0.0
+    for what, a, b in (("aligned points", pts_g, pts_c), ("GT", gt_g, gt_c)):
+        err = np.abs(a - b)
+        worst = max(worst, float(err.max()))
+        if not (err <= E2E_TOL * (1.0 + np.abs(b))).all():
+            raise AssertionError(f"eval parity {what}: card vs CPU max err "
+                                 f"{float(err.max()):.3e} > {E2E_TOL}")
+    log(f"[entry] eval parity 224x224 FP32 4 frames (evaluate_scene on a "
+        f"BoxRoomBackend scene): card vs CPU aligned points max abs err "
+        f"{worst:.3e} <= {E2E_TOL} ok; evaluate_scene {eval_s[0]:.3f} s on "
+        f"the card, {eval_s[1]:.3f} s on the CPU")
     gaps = [float(t[-1] - t[-2]) for t in runs_gpu[2] if len(t) > 1]
     log(f"[parity] offline best-two score gaps a round (card): "
         f"{[f'{g:.3e}' for g in gaps]}")
@@ -1043,6 +1290,7 @@ def main():
     phase_offline(records, cfg, model, card, args.profile)
     phase_engine(cfg, model)
     phase_serving(cfg, model, card)
+    phase_entry(cfg, model, card)
     del model
     torch.cuda.empty_cache()
     phase_parity()

@@ -13,9 +13,13 @@ names), so both packages can run on the same weights:
   - transposed conv: the JAX kernel is HWIO and spatially flipped; it
     becomes ConvTranspose2d's (in, out, kh, kw) with the flip undone
   - block stacks (leading depth axis) -> one entry per block index
+
+`load_spann3r_checkpoint` loads a published Spann3R `.pth` into the port:
+its module paths are the published keys already.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -155,3 +159,36 @@ def memory_state_from_jax(state_np, device=None) -> MemoryState:
     return MemoryState(conv("k"), conv("v"), conv("count", torch.float32),
                        conv("attn", torch.float32), conv("size", torch.int32),
                        conv("wm", torch.int32), conv("lm", torch.int32))
+
+
+# Keys of the published checkpoints that the port does not hold (the JAX
+# package's list, utils/torch_ckpt.py):
+#  - scratch.layer_rn.N.weight: the reference DPT scratch registers the
+#    SAME conv tensors twice (nn.ModuleList aliasing layer{N+1}_rn,
+#    ref croco/models/dpt_block.py:70-74) — duplicates, not information
+#  - mask_token: CroCo masked-pretraining token carried along by
+#    AsymmetricCroCo3DStereo but never used in DUSt3R inference/training
+#    (ref dust3r/model.py:107 lists it only for param-group bookkeeping)
+_ALIAS_OR_VESTIGIAL = (
+    re.compile(r"\.scratch\.layer_rn\.\d+\.weight$"),
+    re.compile(r"(^|\.)mask_token$"),
+)
+
+
+def is_alias_or_vestigial_key(key: str) -> bool:
+    return any(p.search(key) for p in _ALIAS_OR_VESTIGIAL)
+
+
+def load_spann3r_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a Spann3R `.pth` (a state dict, or a dict holding it under
+    'model'; keys with or without a DDP `module.` prefix) into `model`,
+    strictly, with the alias and vestigial keys dropped. Returns the
+    model."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt.get("model", ckpt)
+    state = {(k[len("module."):] if k.startswith("module.") else k): v
+             for k, v in state.items()}
+    state = {k: v for k, v in state.items()
+             if not is_alias_or_vestigial_key(k)}
+    model.load_state_dict(state, strict=True)
+    return model

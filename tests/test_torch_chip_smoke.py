@@ -208,3 +208,65 @@ def test_offline_launch_counts(counting_kernels, n, graph):
         assert counts[k] == sum(want[k].values())
     assert want["rope2d"]["value encoder"] == 0 < want["sdpa"]["value encoder"]
     assert (rope._launch, attention.sdpa_cuda) == wrappers  # undone on exit
+
+
+# ---------------------------------------------------------------------------
+# the entry phase's helpers
+# ---------------------------------------------------------------------------
+
+def test_boxroom_batch_is_a_collated_scene():
+    """The batch the entry phase renders where the host lacks PIL or cv2:
+    the collated layout of a one-scene eval batch, images in [-1, 1], and
+    world points that lie at the rendered depth in front of each camera."""
+    import numpy as np
+
+    b = chip_smoke.boxroom_batch(3, (32, 48), seed=5)
+    assert set(b) == {"img", "pts3d", "valid_mask", "camera_pose"}
+    assert b["img"].shape == b["pts3d"].shape == (3, 1, 32, 48, 3)
+    assert b["valid_mask"].shape == (3, 1, 32, 48) and b["valid_mask"].all()
+    assert b["camera_pose"].shape == (3, 1, 4, 4)
+    assert b["img"].dtype == b["pts3d"].dtype == np.float32
+    assert -1.0 <= b["img"].min() and b["img"].max() <= 1.0
+    for t in range(3):
+        pose = b["camera_pose"][t, 0]
+        cam = (b["pts3d"][t, 0] - pose[:3, 3]) @ pose[:3, :3]
+        assert (cam[..., 2] > 0).all()
+    assert not np.array_equal(b["img"][0], b["img"][2])   # the camera moves
+    again = chip_smoke.boxroom_batch(3, (32, 48), seed=5)
+    for k in b:
+        np.testing.assert_array_equal(b[k], again[k])
+
+
+def _line(**kw):
+    line = {k: 1 for k in chip_smoke.BENCH_KEYS}
+    line.update(value=20.5, mfu_pct=2.3)
+    line.update(kw)
+    return line
+
+
+def test_bench_line_check():
+    """The bench's line: bench.py's keys and the card's name, FPS > 0 and
+    0 < mfu_pct < 100 (the port's bench returns these keys,
+    tests/test_torch_entry.py)."""
+    from tests.test_torch_entry import STREAM_KEYS
+
+    assert chip_smoke.BENCH_KEYS == STREAM_KEYS
+    chip_smoke.check_bench_line(_line())
+    for bad in (_line(mfu_pct=None), _line(mfu_pct=0.0), _line(mfu_pct=150.0),
+                _line(value=0.0), _line(chunk_fps=[1.0])):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_bench_line(bad)
+    line = _line()
+    del line["device"]
+    with pytest.raises(AssertionError, match="keys"):
+        chip_smoke.check_bench_line(line)
+
+
+def test_missing_host_packages(monkeypatch):
+    import importlib.util
+
+    assert chip_smoke.missing_host_packages() == []    # both present here
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "cv2" else real(name, *a))
+    assert chip_smoke.missing_host_packages() == ["cv2"]

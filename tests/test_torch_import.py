@@ -25,8 +25,30 @@ MODULES = [
     "spann3r_torch.models.memory", "spann3r_torch.models.spann3r",
     "spann3r_torch.utils.convert", "spann3r_torch.models.pairs",
     "spann3r_torch.models.inference", "spann3r_torch.models.offline",
-    "spann3r_torch.ops.quant",
+    "spann3r_torch.ops.quant", "spann3r_torch.utils.masked",
+    "spann3r_torch.utils.geometry", "spann3r_torch.losses",
+    "spann3r_torch.tools.eval_pipeline", "spann3r_torch.utils.image",
+    "spann3r_torch.utils.export", "spann3r_torch.utils.pnp",
+    "spann3r_torch.native", "spann3r_torch.tools.icp",
+    "spann3r_torch.tools.eval_recon", "spann3r_torch.tools.vis",
+    "spann3r_torch.habitat_gen", "spann3r_torch.habitat_gen.quat",
+    "spann3r_torch.habitat_gen.geometry", "spann3r_torch.habitat_gen.backends",
+    "spann3r_torch.datasets", "spann3r_torch.datasets.cropping",
+    "spann3r_torch.datasets.base", "spann3r_torch.datasets.loader",
+    "spann3r_torch.datasets.demo", "spann3r_torch.datasets.seven_scenes",
+    "spann3r_torch.datasets.nrgbd", "spann3r_torch.datasets.dtu",
+    "spann3r_torch.datasets.synth", "spann3r_torch.demo", "spann3r_torch.eval",
+    "spann3r_torch.bench", "spann3r_torch.app", "spann3r_torch.ops",
+    "spann3r_torch.models", "spann3r_torch.utils", "spann3r_torch.tools",
 ]
+
+
+def test_every_module_is_listed():
+    """Each module of the package is in MODULES, so the JAX check covers
+    it."""
+    found = {".".join(p.relative_to(REPO).with_suffix("").parts)
+             .removesuffix(".__init__") for p in PKG.rglob("*.py")}
+    assert found == set(MODULES)
 
 
 def test_imports_leave_jax_out():
