@@ -6,7 +6,7 @@
 Phases, each printing its results; any failure raises and exits non-zero:
   1. card    - requires a CUDA device; prints its name and power limit
                (nvidia-smi), the torch and CUDA versions and the TF32 flags
-               (both set off);
+               (both set off by the port's set_tf32_policy);
   2. build   - compiles spann3r_torch/csrc/*.cu (into spann3r_torch/_build/)
                and prints the seconds it took;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
@@ -54,12 +54,29 @@ Phases, each printing its results; any failure raises and exits non-zero:
                ICP + metrics); each with its kernel launches, counted from
                0. The demo and eval CLIs need PIL and cv2: without them
                the phase fails and names the missing one;
+  10. train  - (run after phase 8) the training CLI's configuration at
+               full published width (224x224 DPT, random weights from
+               seed 0), make_train_step on SynthRoom batches (B = 2,
+               T = 5, BF16 with bf16 gradients and moments, memory
+               dropout): K2 and K3 launches, forward and backward, of one
+               step against train_launches; losses and grad norms finite;
+               the weights moved; the median step time and peak memory;
+               on one fixed batch at constant LR the last loss below the
+               first;
   9. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
                offline: the card (kernels) against the CPU (plain
-               versions), the same frame order, tolerance 1e-3; and the
+               versions), the same frame order, tolerance 1e-3; the
                eval pipeline (evaluate_scene) on a 4-frame BoxRoomBackend
-               scene, its aligned points within the same tolerance.
-Phase 3 also runs K2 and K3 at the offline shapes: the encoder on 8 frames,
+               scene, its aligned points within the same tolerance; and
+               one FP32 train step of a narrow configuration with head
+               dim 64 (loss and every gradient, within 1e-3 of the
+               largest |grad|).
+Phase 3 also holds K2's backward kernel and K3 at sign -1 (the backward)
+against their plain versions at the training shapes and the 512 encoder's,
+with planted faults, and times them (K2's library time: the library's
+forward + backward minus its forward). Phase 7 also measures what TF32 on
+would change in the slice's pointmaps. Phase 3 also runs K2 and K3 at the
+offline shapes: the encoder on 8 frames,
 the decoder at the pairwise scan's batch of 8 and at the candidate
 batches of the greedy rounds (6 down to 2, checked, not timed), positions
 expanded over the batch with stride 0. Before the last line it prints one
@@ -93,10 +110,11 @@ FRAMES_DEMO = 8
 # the entry phase's bench: 512x384 BF16, one stream (the bench's defaults
 # but for the frames, the chunk and the reps)
 BENCH_FLAGS = ("--frames", "32", "--chunk", "16", "--reps", "3")
-# the keys of the bench's JSON line (bench.py's, plus the card's name)
+# the keys of the bench's JSON line (bench.py's, plus the card's name and
+# the TF32 policy)
 BENCH_KEYS = frozenset({"metric", "value", "unit", "vs_baseline",
                         "ms_per_frame", "mfu_pct", "streams", "precision",
-                        "sync", "reps", "fps_spread", "device"})
+                        "sync", "reps", "fps_spread", "tf32", "device"})
 # the eval's SynthRoom scenes: 16 frames, every second one kept
 EVAL_SCENES, EVAL_SEQ_LEN, EVAL_KF_EVERY = 2, 16, 2
 # the points of each scene that the eval's ICP and metrics take in this run
@@ -136,7 +154,9 @@ TOL_BF16 = 2e-2
 TOL_ROPE_BF16 = 8e-3
 TOL = {("rope2d", torch.float32): 1e-5,
        ("rope2d", torch.bfloat16): TOL_ROPE_BF16,
-       ("sdpa", torch.float32): 1e-4, ("memory_read", torch.float32): 1e-4}
+       ("sdpa", torch.float32): 1e-4, ("memory_read", torch.float32): 1e-4,
+       ("sdpa_bwd", torch.float32): 1e-4, ("rope2d_bwd", torch.float32): 1e-5,
+       ("rope2d_bwd", torch.bfloat16): TOL_ROPE_BF16}
 E2E_TOL = 1e-3
 # the frame-at-a-time engine against the chunked run, both BF16: the
 # port's bf16 bound against the JAX package (tests/test_torch_model.py
@@ -157,7 +177,16 @@ SOURCES = {
              "spann3r_tpu/ops/pallas_attention.py:60"),
     "memory_read": ("spann3r_torch/csrc/memory_read.cu",
                     "spann3r_tpu/ops/pallas_memory.py:129"),
+    # the backwards: K2's (fused_sdpa's _bwd, pallas_attention.py:88-91, the
+    # jnp VJP) is a kernel of its own; K3's is the same kernel at sign -1
+    # (pallas_rope.py:81-82)
+    "sdpa_bwd": ("spann3r_torch/csrc/sdpa_bwd.cu",
+                 "spann3r_tpu/ops/pallas_attention.py:60"),
+    "rope2d_bwd": ("spann3r_torch/csrc/rope2d.cu",
+                   "spann3r_tpu/ops/pallas_rope.py:56"),
 }
+BACKWARD_OF = {"sdpa_bwd": "spann3r_tpu/ops/pallas_attention.py:88-91",
+               "rope2d_bwd": "spann3r_tpu/ops/pallas_rope.py:81-82"}
 # the memory-read kernel also replaces the two other pallas_call sites of
 # the same TPU kernel
 ALSO_REPLACES = {"memory_read": ["spann3r_tpu/ops/pallas_memory.py:138",
@@ -281,8 +310,8 @@ def phase_card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0].strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from spann3r_torch.config import set_tf32_policy
+    set_tf32_policy()
     log(f"[card] nvidia-smi: {card}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count "
@@ -332,10 +361,12 @@ def phase_kernels(records):
             failures.append(f"planted fault not caught: {label}")
 
     def case(kernel, label, dtype, run_kernel, run_plain, main, work,
-             extra=(), note="", time_it=True, run_library=None):
+             extra=(), note="", time_it=True, run_library=None,
+             library_minus=None):
         """work: (flops, bytes) the function needs on these inputs; extra:
-        the added bound of each output (none by default). Returns the
-        case's record."""
+        the added bound of each output (none by default); library_minus:
+        a call whose time the library time leaves out (the forward of a
+        forward + backward). Returns the case's record."""
         tol = TOL.get((kernel, dtype), TOL_BF16)
         outs_k, outs_p = run_kernel(), run_plain()
         if not isinstance(outs_k, tuple):
@@ -351,6 +382,8 @@ def phase_kernels(records):
         ms = cuda_ms(run_kernel) if time_it else nan
         pms = cuda_ms(run_plain) if time_it else nan
         lms = cuda_ms(run_library) if time_it and run_library else None
+        if lms is not None and library_minus is not None:
+            lms -= cuda_ms(library_minus)
         bms, bound_by = bound(*work, PEAK_BF16_FLOPS if dtype == torch.bfloat16
                               else PEAK_FP32_FLOPS)
         dt = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -369,6 +402,8 @@ def phase_kernels(records):
             src, rep = SOURCES[kernel]
             records[kernel] = {"name": kernel, "route": "cuda", "source": src,
                                "replaces": rep, **rec}
+            if kernel in BACKWARD_OF:
+                records[kernel]["backward_of"] = BACKWARD_OF[kernel]
             if kernel in ALSO_REPLACES:
                 records[kernel]["also_replaces"] = ALSO_REPLACES[kernel]
         return rec
@@ -509,6 +544,7 @@ def phase_kernels(records):
                                 f"without its {what}",
                                 torch.matmul(a, v.float()).to(dtype), want,
                                 TOL_BF16, extra[0] if extra else 0.0)
+        backward_cases(case, planted, dtype, randn, records)
     records["rope2d"]["decoder"] = rope_decoder
     records["rope2d"]["offline"] = rope_offline
     records["sdpa"]["offline"] = sdpa_offline
@@ -517,6 +553,87 @@ def phase_kernels(records):
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
+
+
+# the backwards at the training shapes (224x224: 196 tokens; encoder on
+# B*T = 10 frames, decoder and value encoder on B = 2 streams) and at the
+# 512x384 encoder's
+BWD_SHAPES = (("train encoder", 10, 16, 196), ("train decoder", 2, 12, 196),
+              ("train value encoder", 2, 16, 196), ("encoder 512", 16, 16, 768))
+
+
+def backward_cases(case, planted, dtype, randn, records):
+    """K2's backward kernel against sdpa_backward_plain and K3 at sign -1
+    on gradients against rope_2d_plain, on the card, with the layouts
+    training gives them: q, k, v strided slices of a qkv projection, dO
+    and the RoPE gradients (B, H, N, 64) views of (B, N, H, 64) buffers
+    (what the SDPA backward and the merged heads write), lse from the
+    forward kernel. The library time of K2's backward is
+    F.scaled_dot_product_attention forward + backward minus its forward.
+    K3 takes no RoPE in the value encoder (mem_pos_enc off). The bf16
+    records of every shape go under the main record's "by_shape"."""
+    import torch.nn.functional as F
+
+    from spann3r_torch.models.vit import patch_positions
+    from spann3r_torch.ops import attention, rope
+
+    main = dtype == torch.bfloat16
+    esize = torch.finfo(dtype).bits // 8
+    for label, b, h, n in BWD_SHAPES:
+        qkv = randn(b, n, 3, h, 64, dtype=dtype).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        dout = randn(b, n, h, 64, dtype=dtype).transpose(1, 2)
+        _, lse = attention.sdpa_cuda(q, k, v, 0.125, with_lse=True)
+        want_lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(
+            -1, -2)) * 0.125, dim=-1)
+        lse_err = float((lse - want_lse).abs().max())
+        if lse_err > 1e-4 * (1.0 + float(want_lse.abs().max())):
+            raise AssertionError(f"sdpa {label} logsumexp off by {lse_err}")
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125)
+        work = (10.0 * b * h * n * n * 64,
+                esize * 7.0 * b * h * n * 64 + 4.0 * b * h * n)
+        shape = f"({b},{h},{n},{n})"
+        rec = case(
+            "sdpa_bwd", f"{label} {shape} lse max err {lse_err:.1e}", dtype,
+            lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, 0.125),
+            lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125),
+            main and label == "train encoder", work,
+            run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl),
+                                                    dout),
+            library_minus=lib_fwd)
+        if main:
+            records["sdpa_bwd"].setdefault("by_shape", {})[label] = rec
+            # planted fault: dk of the last key tile left out
+            want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)[1]
+            wrong = want.clone()
+            wrong[..., -64:, :] = 0.0
+            planted(f"sdpa_bwd {label} {shape}: dk without its last key "
+                    f"tile", wrong, want, TOL_BF16)
+        if "value" in label:
+            continue
+        grid = (patch_positions(14, 14, q.device) if n == 196 else
+                patch_positions(HW_512[0] // 16, HW_512[1] // 16, q.device))
+        pos = grid[None].expand(b, -1, -1)
+        dq, dk = (randn(b, n, h, 64, dtype=dtype).transpose(1, 2)
+                  for _ in range(2))
+        work = (3.0 * (dq.numel() + dk.numel()),
+                2.0 * (dq.numel() + dk.numel()) * esize
+                + grid.untyped_storage().nbytes())
+        rec = case(
+            "rope2d_bwd", f"{label} dq+dk ({b},{h},{n},64)", dtype,
+            lambda: tuple(rope._launch([(dq, pos), (dk, pos)], 100.0, -1.0,
+                                       counter="rope2d_bwd")),
+            lambda: (rope.rope_2d_plain(dq, pos, 100.0, -1.0),
+                     rope.rope_2d_plain(dk, pos, 100.0, -1.0)),
+            main and label == "train encoder", work)
+        if main:
+            records["rope2d_bwd"].setdefault("by_shape", {})[label] = rec
+            want = rope.rope_2d_plain(dk, pos, 100.0, -1.0)
+            wrong = want.clone()
+            wrong[:, -1] = dk[:, -1]
+            planted(f"rope2d_bwd {label}: the last head of dk unrotated",
+                    wrong, want, TOL_ROPE_BF16)
 
 
 # ---------------------------------------------------------------------------
@@ -883,7 +1000,7 @@ def phase_engine(cfg, model):
     preds = [{k: v.float().cpu().numpy() for k, v in p.items()} for p in out]
     check_preds("engine", preds, n, HW_512)
     if not counts["memory_read"] == engine.stats["memory_reads"] == n - 2 \
-            or min(counts.values()) <= 0:
+            or min(counts[k] for k in _kernels.KERNELS) <= 0:
         raise AssertionError(f"engine launches {counts}, memory reads "
                              f"{engine.stats['memory_reads']}")
     video = sp.InferenceEngine(model, cfg, HW_512, config.BF16).run_video(frames)
@@ -956,6 +1073,18 @@ def phase_serving(cfg, model, card):
     run_to_run = diff(run(model, config.BF16), plain)[0]
     log(f"[serving] plain BF16: {line}; two plain runs differ by at most "
         f"{run_to_run:.3e}")
+    # the port's TF32 policy is off; what TF32 on (the fp32 DPT heads'
+    # convolutions and the fp32 products) would change in the pointmaps
+    try:
+        config.set_tf32_policy(True)
+        tf32 = run(model, config.BF16)
+    finally:
+        config.set_tf32_policy()
+    worst, rel = diff(tf32, plain)
+    log(f"[serving] TF32 on: vs the TF32-off slice max abs diff "
+        f"{worst:.3e}, median rel pts3d diff {rel:.3e} ({FRAMES_512} frames "
+        f"512x384 BF16; two TF32-off runs differ by {run_to_run:.3e}) on "
+        f"{card}")
     settings = (
         ("cast_serving_weights_", lambda: quant.cast_serving_weights_(
             copy.deepcopy(model)), config.BF16),
@@ -1045,6 +1174,8 @@ def check_bench_line(line):
         raise AssertionError(f"bench FPS {line['value']}")
     if line["mfu_pct"] is None or not 0 < line["mfu_pct"] < 100:
         raise AssertionError(f"bench mfu_pct {line['mfu_pct']}")
+    if line["tf32"] != {"matmul": False, "conv": False}:
+        raise AssertionError(f"bench TF32 policy {line['tf32']}")
 
 
 def launched(label, fn):
@@ -1057,7 +1188,7 @@ def launched(label, fn):
     out = fn()
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in _kernels.KERNELS) <= 0:
         raise AssertionError(f"{label}: a kernel was never launched: {counts}")
     return out, counts
 
@@ -1176,6 +1307,122 @@ def phase_entry(cfg, model, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training at full width
+# ---------------------------------------------------------------------------
+
+# the training phase: the CLI's defaults (B = 2 clips of T = 5 frames at
+# 224, BF16: bf16 gradients against a bf16 working copy, bf16 Adam moments,
+# memory dropout), the peak LR of the CLI's schedule held constant
+TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_STEPS, TRAIN_FIXED_STEPS = 2, 5, 5e-5, 8, 5
+TRAIN_DATASET = ("SynthRoom(num_seq=16, num_frames=5, resolution=224, "
+                 "seq_len=24, min_thresh=1, max_thresh=3, seed=777)")
+
+
+def train_launches(cfg, t):
+    """Kernel launches of one train step on clips of t frames: the encoder
+    once on all B * t frames (each block one K3 and one K2), then per pair
+    (t - 1) both decoders (each block self and cross attention: K3 and K2
+    each) and the value encoder (K2 per block; K3 only with mem_pos_enc);
+    no K1 (the training read is plain PyTorch). Each backward is launched
+    as often as its forward but in the last pair's value encoder, whose
+    tokens go into a bank that nothing reads after them."""
+    pairs = t - 1
+    dec = 4 * cfg.dust3r.dec.depth
+    val = cfg.value_enc_depth
+    val_rope = val if cfg.mem_pos_enc else 0
+    rope = cfg.dust3r.enc.depth + pairs * (dec + val_rope)
+    sdpa = cfg.dust3r.enc.depth + pairs * (dec + val)
+    return {"rope2d": rope, "sdpa": sdpa, "memory_read": 0,
+            "sdpa_bwd": sdpa - val, "rope2d_bwd": rope - val_rope}
+
+
+def phase_train(records, card):
+    """The published width at 224 (the training CLI's default
+    configuration), random weights from SEED, make_train_step on SynthRoom
+    batches through the trainer's dataset, sampler and loader: the launches
+    of one step against train_launches, every step's loss and grad norm
+    finite, the weights moved by the first step, the median step time and
+    the peak memory; then steps on one fixed batch at constant LR without
+    dropout, whose last loss must be below the first."""
+    from spann3r_torch import config, training
+    from spann3r_torch.datasets import build_dataset, make_sampler
+    from spann3r_torch.datasets.loader import DataLoader
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    cfg = config.Spann3RConfig(dust3r=config.DUSt3RConfig(img_size=HW_224,
+                                                          head_type="dpt"))
+    model = sp.build_spann3r(cfg, "cuda", torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    ds = build_dataset(TRAIN_DATASET)
+    ds.set_epoch(0)
+    ds.set_ratio(1.0)
+    sampler = make_sampler(ds, TRAIN_B)
+    sampler.set_epoch(0)
+    batches = list(DataLoader(ds, TRAIN_B, sampler=sampler, num_workers=2))
+    if len(batches) < TRAIN_STEPS or batches[0]["img"].shape != (
+            TRAIN_T, TRAIN_B, *HW_224, 3):
+        raise AssertionError(f"train batches: {len(batches)} of shape "
+                             f"{batches[0]['img'].shape}")
+    opt = training.make_optimizer(0.05, moment_dtype=torch.bfloat16)
+    opt_state = opt.init(dict(model.named_parameters()))
+    step = training.make_train_step(cfg, config.BF16, opt, grads_bf16=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    watch = model.dust3r.enc_blocks[0].attn.qkv.weight
+    before = watch.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        if i == 0:
+            _kernels.reset_launches()
+        t0 = time.perf_counter()
+        opt_state, m = step(model, opt_state, batches[i], gen, TRAIN_LR, 0.4)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = _kernels.launch_counts()
+            moved = float((watch.detach() - before).abs().max())
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    want = train_launches(cfg, TRAIN_T)
+    log(f"[train] {n_params} params, 224x224 BF16 (bf16 grads and moments, "
+        f"dropout {cfg.memory.mem_dropout}), B={TRAIN_B} T={TRAIN_T}, lr "
+        f"{TRAIN_LR}: launches of step 1 {counts}, expected {want}")
+    log(f"[train] loss by step {[round(x, 4) for x in losses]}; grad norm "
+        f"{[round(x, 4) for x in gnorms]}; step 1 moved the first qkv weight "
+        f"by up to {moved:.3e}")
+    steady = walls[3:]
+    log(f"[train] step ms {[round(x, 1) for x in walls]}: median of steps "
+        f"4-{TRAIN_STEPS} {statistics.median(steady):.1f} ms "
+        f"({TRAIN_B * TRAIN_T / statistics.median(steady) * 1e3:.2f} frames/s)"
+        f"; peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated) on {card}")
+    if counts != want:
+        raise AssertionError(f"train launches {counts}, expected {want}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        raise AssertionError("a train step's loss or grad norm is not finite")
+    if not moved > 0:
+        raise AssertionError("the first train step left the weights as they were")
+    fixed = []
+    for _ in range(TRAIN_FIXED_STEPS):
+        opt_state, m = step(model, opt_state, batches[0], None, TRAIN_LR, 0.4)
+        fixed.append(float(m["loss"]))
+    log(f"[train] one fixed batch, constant lr {TRAIN_LR}, no dropout: loss "
+        f"{[round(x, 4) for x in fixed]}")
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError("on one fixed batch the loss did not fall")
+    for name in _kernels.BACKWARD_KERNELS:
+        records[name]["launches"] = counts[name]
+    del model, opt_state, step
+    torch.cuda.empty_cache()
+    log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: card against CPU, end to end
 # ---------------------------------------------------------------------------
 
@@ -1273,6 +1520,81 @@ def phase_parity():
         f"{[f'{g:.3e}' for g in gaps]}")
 
 
+# the narrow configuration of the train-step parity: head dim 64 in the
+# encoder, the decoders and the value encoder, so that K2 runs, at 224
+PARITY_TRAIN_T = 3
+
+
+def parity_train_cfg():
+    from spann3r_torch import config as C
+    return C.Spann3RConfig(
+        dust3r=C.DUSt3RConfig(img_size=HW_224, head_type="dpt",
+                              enc=C.ViTConfig(dim=256, depth=2, num_heads=4),
+                              dec=C.ViTConfig(dim=192, depth=2, num_heads=3)),
+        value_enc_depth=2, value_enc_dim=256, value_enc_heads=4,
+        attn_head_in=256 + 192, attn_head_out=256)
+
+
+def phase_parity_train():
+    """One FP32 train step's loss and gradients, the card (kernels, forward
+    and backward) against the CPU (plain versions under autograd), on the
+    same weights and batch, dropout off: loss within E2E_TOL relative,
+    every gradient within E2E_TOL of the largest |grad|. Then the step
+    itself on the card: finite, and the weights move."""
+    from spann3r_torch import config, training
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.ops import _kernels
+
+    cfg = parity_train_cfg()
+    rng = np.random.default_rng(SEED + 30)
+    t, b = PARITY_TRAIN_T, 2
+    frames = make_frames(t * b, HW_224, seed=SEED + 31).reshape(
+        t, b, *HW_224, 3).astype(np.float32) / 127.5 - 1.0
+    batch = {"img": frames,
+             "pts3d": (rng.standard_normal((t, b, *HW_224, 3)) + 2.0).astype(
+                 np.float32),
+             "valid_mask": rng.random((t, b, *HW_224)) > 0.2,
+             "camera_pose": np.broadcast_to(np.eye(4, dtype=np.float32),
+                                            (t, b, 4, 4)).copy()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = sp.build_spann3r(cfg, dev, torch.Generator().manual_seed(SEED))
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            _kernels.reset_launches()
+        loss, _, grads = training.value_and_grad(
+            model, cfg, config.FP32, training.batch_to_device(batch, dev),
+            None, 0.4)
+        out[dev] = (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+                    time.perf_counter() - t0)
+        if dev == "cuda":
+            counts = _kernels.launch_counts()
+            opt = training.make_optimizer(0.05)
+            st = opt.init(dict(model.named_parameters()))
+            w0 = model.value_out.weight.detach().clone()
+            st, m = training.make_train_step(cfg, config.FP32, opt)(
+                model, st, batch, None, 1e-4, 0.4)
+            if not (np.isfinite(float(m["loss"])) and
+                    float((model.value_out.weight.detach() - w0).abs().max())
+                    > 0):
+                raise AssertionError("the FP32 train step on the card failed")
+        del model
+    (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    worst = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
+    worst_name = max(gc, key=lambda k: float((gg[k] - gc[k]).abs().max()))
+    log(f"[parity] one FP32 train step 224x224, B={b} T={t}, enc 256/4 heads, "
+        f"dec 192/3 heads (head dim 64): loss card {lg:.6f} CPU {lc:.6f}; "
+        f"grads max abs err {worst:.3e} ({worst_name}) = {worst / gmax:.3e} "
+        f"of max |grad| {gmax:.3e} (bound {E2E_TOL}); launches on the card "
+        f"{counts}, expected {train_launches(cfg, t)}; {sg:.2f} s on the "
+        f"card, {sc:.2f} s on the CPU")
+    if counts != train_launches(cfg, t):
+        raise AssertionError("train-step parity: launches differ from the code")
+    if abs(lg - lc) > E2E_TOL * (1.0 + abs(lc)) or worst > E2E_TOL * gmax:
+        raise AssertionError("train-step parity: card and CPU disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1293,9 +1615,11 @@ def main():
     phase_entry(cfg, model, card)
     del model
     torch.cuda.empty_cache()
+    phase_train(records, card)
     phase_parity()
-    print(json.dumps({"kernels": [records[k] for k in ("rope2d", "sdpa",
-                                                       "memory_read")]}))
+    phase_parity_train()
+    print(json.dumps({"kernels": [records[k] for k in (
+        "rope2d", "sdpa", "memory_read", "sdpa_bwd", "rope2d_bwd")]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

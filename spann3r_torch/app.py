@@ -44,11 +44,13 @@ def reconstruct(video_path: str, conf_thresh: float = 1e-3, kf_every: int = 1,
 
     from . import demo as demo_cli
     from .api import reconstruct_video
+    from .config import set_tf32_policy
     from .datasets import Demo
     from .datasets.loader import collate_views
     from .utils.export import (cat_meshes, pts3d_to_mesh, write_glb_mesh,
                                write_glb_pointcloud)
 
+    set_tf32_policy()
     args = demo_cli.get_args_parser().parse_args([])
     args.ckpt_path = ckpt_path
     args.resolution = resolution

@@ -143,10 +143,11 @@ def run(args, cfg=None, model=None) -> dict:
     serving in place)."""
     import torch
 
-    from .config import BF16, BF16_FAST, Spann3RConfig
+    from .config import BF16, BF16_FAST, Spann3RConfig, set_tf32_policy
     from .models.spann3r import build_spann3r, init_video_carry, scan_video_chunk
     from .ops import quant
 
+    tf32 = set_tf32_policy()
     hw = (args.height, args.width)
     prec = BF16_FAST if args.bf16_heads else BF16
     b = args.streams
@@ -193,7 +194,7 @@ def run(args, cfg=None, model=None) -> dict:
             "fps_spread": [round(n_off / max(elapsed_reps), 2),
                            round(n_off / min(elapsed_reps), 2)],
             "precision": "bf16_fast" if args.bf16_heads else "bf16",
-            "device": _device_name(dev)}
+            "tf32": tf32, "device": _device_name(dev)}
 
     chunks = [torch.from_numpy(frames[s:s + args.chunk]).to(dev)
               for s in range(0, args.frames, args.chunk)
@@ -268,6 +269,7 @@ def run(args, cfg=None, model=None) -> dict:
         **({"chunk_fps": [round(args.chunk * b / dt, 2)
                           for dt in chunk_times[-len(chunks):]]}
            if args.sync_per_chunk and chunk_times else {}),
+        "tf32": tf32,
         "device": _device_name(dev),
     }
 

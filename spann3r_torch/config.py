@@ -2,12 +2,13 @@
 
 Frozen dataclasses with the same fields and defaults as
 `spann3r_tpu.config`, so a configuration reads the same in both packages;
-`Precision` holds torch dtypes.
+`Precision` holds torch dtypes. `set_tf32_policy` is the port's one TF32
+policy, which every entry point applies.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -115,3 +116,16 @@ BF16 = Precision(compute_dtype=torch.bfloat16, head_dtype=torch.float32)
 # (`downstream_head` casts its states to head_dtype)
 BF16_FAST = Precision(compute_dtype=torch.bfloat16, head_dtype=torch.bfloat16)
 
+
+
+def set_tf32_policy(enabled: bool = False) -> Dict[str, bool]:
+    """The port's TF32 policy: off (the default) for fp32 matrix products
+    and fp32 convolutions on the card, so that the fp32 DPT heads and the
+    FP32 precision compute in full fp32, as on the CPU and as every
+    card-against-CPU parity check assumes. PyTorch's own default runs fp32
+    convolutions in TF32. Every entry point calls this first; `enabled`
+    exists to measure what TF32 changes. Returns the two flags as set."""
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+    return {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "conv": torch.backends.cudnn.allow_tf32}

@@ -46,6 +46,12 @@
 //     bank conflicts). This path serves only the fp32 parity runs.
 // Any N and M >= 1 (ragged edges are masked); every operand is read through
 // its batch, head and row strides with unit stride in Dh.
+//
+// For training, the forward also writes each row's logsumexp of the scaled
+// logits, fp32, natural-log units, (B, H, N) contiguous, which the backward
+// (sdpa_bwd.cu) reads to recompute the probabilities. A null lse pointer
+// writes none; the lse store comes after the output's arithmetic and
+// changes none of its bits.
 
 #include <math.h>
 #include <stdint.h>
@@ -127,9 +133,9 @@ __device__ __forceinline__ float row_sum16(float v) {
 
 __global__ void __launch_bounds__(NT)
 sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int H,
-                int N, int M, Strides qs_, Strides ks_, Strides vs_,
-                Strides os_, float scale) {
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, int H, int N, int M, Strides qs_,
+                Strides ks_, Strides vs_, Strides os_, float scale) {
   __shared__ float qs[TQ * RP];
   __shared__ float kv[TK * RP];
   __shared__ float ps[TQ * PP];
@@ -212,6 +218,8 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= N) continue;
 #pragma unroll
     for (int c = 0; c < 4; ++c) ob[r * os_.n + tx + 16 * c] = acc[a][c];
+    if (lse != nullptr && tx == 0)
+      lse[(long long)bh * N + r] = m_run[a] + logf(z_run[a]);
   }
 }
 
@@ -235,9 +243,10 @@ constexpr size_t kWgmmaSmem = 1024 + hopper::kTileBytes * (1 + 2 * STAGES);
 // registers, V from shared memory), O in fp32 registers.
 __global__ void __launch_bounds__(128)
 sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                  int N, int M, Strides qs_, Strides ks_, Strides vs_,
-                  Strides os_, float scale, bool vq, bool vk, bool vv) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int H, int N, int M, Strides qs_,
+                  Strides ks_, Strides vs_, Strides os_, float scale, bool vq,
+                  bool vk, bool vv) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qsm = align1024(smem_raw);
@@ -361,6 +370,16 @@ sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             pack_bf16(acc[i + 2 * hr], acc[i + 2 * hr + 1]);
     }
   }
+  // the 4 lanes of a row hold the same statistics; m_run is in log2 units
+  if (lse != nullptr && (t & 3) == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + r0 + 8 * hr;
+      if (row < N)
+        lse[(long long)bh * N + row] =
+            (m_run[hr] + log2f(z_run[hr])) * 0.6931471805599453f;
+    }
+  }
 }
 
 __host__ __device__ inline bool rows_aligned16(const void* p, Strides st) {
@@ -368,19 +387,19 @@ __host__ __device__ inline bool rows_aligned16(const void* p, Strides st) {
          st.h % 8 == 0 && st.n % 8 == 0;
 }
 
-void launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int N, int M, Strides sq, Strides sk, Strides sv,
-                Strides so, float scale, cudaStream_t stream) {
+void launch_f32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int N, int M, Strides sq, Strides sk,
+                Strides sv, Strides so, float scale, cudaStream_t stream) {
   dim3 grid((N + TQ - 1) / TQ, B * H);
   sdpa_f32_kernel<<<grid, NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, N, M, sq, sk,
-      sv, so, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, M, sq,
+      sk, sv, so, scale);
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int N, int M, Strides sq, Strides sk,
-                        Strides sv, Strides so, float scale,
+                        float* lse, int B, int H, int N, int M, Strides sq,
+                        Strides sk, Strides sv, Strides so, float scale,
                         cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       sdpa_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,8 +408,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid((N + 63) / 64, B * H);
   sdpa_wgmma_kernel<<<grid, 128, kWgmmaSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, N, M, sq, sk, sv,
-      so, scale, rows_aligned16(q, sq), rows_aligned16(k, sk),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, N, M, sq, sk,
+      sv, so, scale, rows_aligned16(q, sq), rows_aligned16(k, sk),
       rows_aligned16(v, sv));
   return cudaSuccess;
 }
@@ -400,8 +419,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, H, N, D), k and v: (B, H, M, D), out: (B, H, N, D); each with
 // element strides (batch, head, row) and unit stride in D. D must be 64.
+// lse: null, or fp32 (B, H, N) contiguous for each row's logsumexp.
 extern "C" int spann3r_sdpa(const void* q, const void* k, const void* v,
-                            void* out, int dtype, int B, int H, int N, int M,
+                            void* out, void* lse, int dtype, int B, int H,
+                            int N, int M,
                             int D, long long qsb, long long qsh,
                             long long qsn, long long ksb, long long ksh,
                             long long ksn, long long vsb, long long vsh,
@@ -414,10 +435,11 @@ extern "C" int spann3r_sdpa(const void* q, const void* k, const void* v,
   const Strides sq{qsb, qsh, qsn}, sk{ksb, ksh, ksn}, sv{vsb, vsh, vsn},
       so{osb, osh, osn};
   if (dtype == kFloat32) {
-    launch_f32(q, k, v, out, B, H, N, M, sq, sk, sv, so, scale, s);
+    launch_f32(q, k, v, out, static_cast<float*>(lse), B, H, N, M, sq, sk,
+               sv, so, scale, s);
   } else if (dtype == kBFloat16) {
-    const cudaError_t err = launch_bf16(q, k, v, out, B, H, N, M, sq, sk, sv,
-                                        so, scale, s);
+    const cudaError_t err = launch_bf16(q, k, v, out, static_cast<float*>(lse),
+                                        B, H, N, M, sq, sk, sv, so, scale, s);
     if (err != cudaSuccess) return (int)err;
   } else {
     return (int)cudaErrorInvalidValue;

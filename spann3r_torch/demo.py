@@ -170,9 +170,11 @@ def reconstruct_and_export(model, cfg, prec, batch, args, demo_name,
 
 
 def main(args):
+    from .config import set_tf32_policy
     from .datasets import Demo
     from .datasets.loader import collate_views
 
+    set_tf32_policy()
     os.makedirs(args.save_path, exist_ok=True)
     model, cfg, prec = load_model(args)
 

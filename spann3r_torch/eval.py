@@ -142,9 +142,15 @@ def scene_metrics(pts_m, gts_m, threshold):
 
 def warm_up(model, cfg, prec, batch, args):
     """One reconstruction outside the per-scene clock: it builds the CUDA
-    kernels on the first call. Online, 17 frames cover a full chunk of 16
+    kernels on the first call; the native geometry library (ICP,
+    normals) is built and the metrics' modules are imported here too, not
+    in the first scene's clock. Online, 17 frames cover a full chunk of 16
     and the start of the next; offline runs the scene's own frames."""
+    from . import native
     from .api import reconstruct_video
+    from .tools import eval_recon, icp  # noqa: F401  (scipy.spatial)
+
+    native.load()
     if args.offline:
         reconstruct_video(model, cfg, batch["img"], prec, offline=True,
                           scene_graph=args.scenegraph_type)
@@ -237,6 +243,9 @@ def evaluate_dataset(model, cfg, prec, name, dataset, args, save_path):
 def main(args):
     """Evaluates every dataset of --datasets; returns {name: the
     evaluate_dataset result}."""
+    from .config import set_tf32_policy
+
+    set_tf32_policy()
     exp_path = osp.join(args.exp_path, args.exp_name)
     os.makedirs(exp_path, exist_ok=True)
     model, cfg, prec = load_model(args)

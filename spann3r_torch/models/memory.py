@@ -9,12 +9,17 @@ tensor operation that takes any number of streams B:
   - spill        = counter bookkeeping only (working -> long-term)
   - prune        = stable top-k over masked usage weights + gather
   - read         = `ops.memory_read` (the CUDA kernel on the card, B = 1)
+  - training read = `memory_read_train`: masked softmax, memory dropout,
+                   attention cast to the values' dtype before the readout,
+                   in plain differentiable PyTorch (JAX's XLA read)
 
-Operations return new states and leave their inputs unchanged.
+Operations return new states and leave their inputs unchanged; the append
+carries autograd through its index writes.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,18 +67,12 @@ def _per_stream_select(pred: torch.Tensor, new: MemoryState,
 
 def memory_read(norms, state: MemoryState, feat: torch.Tensor,
                 attn_thresh: float, ln_eps: float = 1e-6,
-                dropout_rate: float = 0.0,
                 res: bool = True) -> Tuple[torch.Tensor, MemoryState]:
-    """Attention readout of the bank. feat (B, P, D) queries; `norms` holds
-    norm_q, norm_k and norm_v. Returns (fused (B, P, D), state with the
-    attention statistic accumulated). Streams with an empty bank get feat
-    unchanged: the kernel's output for them is discarded here. Training
-    reads (memory dropout, dropout_rate > 0) are not ported yet and
-    raise."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "memory dropout (training reads) is not ported yet: ROADMAP "
-            "queue A item 'training'")
+    """Attention readout of the bank, the inference read. feat (B, P, D)
+    queries; `norms` holds norm_q, norm_k and norm_v. Returns (fused
+    (B, P, D), state with the attention statistic accumulated). Streams
+    with an empty bank get feat unchanged: the kernel's output for them is
+    discarded here. Training reads are `memory_read_train`."""
     q = layer_norm(norms.norm_q, feat, ln_eps)
     k = layer_norm(norms.norm_k, state.k.to(feat.dtype), ln_eps)
     vv = layer_norm(norms.norm_v, state.v.to(feat.dtype), ln_eps)
@@ -84,6 +83,48 @@ def memory_read(norms, state: MemoryState, feat: torch.Tensor,
     out = torch.where(has_mem[:, None, None], out, feat)
     new_attn = state.attn + torch.where(has_mem[:, None], attn_slot,
                                         torch.zeros_like(attn_slot))
+    return out, state._replace(attn=new_attn)
+
+
+def memory_read_train(norms, state: MemoryState, feat: torch.Tensor,
+                      attn_thresh: float = 0.0, ln_eps: float = 1e-6,
+                      dropout_rate: float = 0.0,
+                      generator: Optional[torch.Generator] = None,
+                      keep: Optional[torch.Tensor] = None,
+                      res: bool = True) -> Tuple[torch.Tensor, MemoryState]:
+    """The training read, JAX's XLA branch of `memory_read`
+    (spann3r_tpu/models/memory.py:130-153), differentiable: fp32 logits
+    q k^T / sqrt(D) over the valid slots, an fp32 softmax, memory dropout
+    (each weight kept with probability 1 - dropout_rate, the kept ones
+    scaled by 1 / (1 - dropout_rate)), the threshold renormalisation (inert
+    at attn_thresh = 0, the value training uses), then the weights cast to
+    the values' dtype and the readout accumulated in fp32, cast to feat's
+    dtype. Dropout draws its keep mask from `generator` (on feat's device),
+    or takes `keep` (B, P, C) bool as given; with neither it is off. The
+    products are plain matrix products (JAX leaves them to XLA)."""
+    d = feat.shape[-1]
+    q = layer_norm(norms.norm_q, feat, ln_eps)
+    k = layer_norm(norms.norm_k, state.k.to(feat.dtype), ln_eps)
+    vv = layer_norm(norms.norm_v, state.v.to(feat.dtype), ln_eps)
+    has_mem = state.size > 0
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / math.sqrt(d)
+    logits = torch.where(_valid_mask(state)[:, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    attn = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0 and (keep is not None or generator is not None):
+        if keep is None:
+            keep = torch.rand(attn.shape, generator=generator,
+                              device=attn.device) < 1.0 - dropout_rate
+        attn = attn * keep / (1.0 - dropout_rate)
+    if attn_thresh > 0:
+        attn = torch.where(attn < attn_thresh, torch.zeros_like(attn), attn)
+        attn = attn / (attn.sum(-1, keepdim=True) + 1e-12)
+    out = torch.matmul(attn.to(vv.dtype).float(), vv.float()).to(feat.dtype)
+    if res:
+        out = out + feat
+    out = torch.where(has_mem[:, None, None], out, feat)
+    new_attn = state.attn + torch.where(has_mem[:, None], attn.sum(-2).detach(),
+                                        torch.zeros_like(state.attn))
     return out, state._replace(attn=new_attn)
 
 

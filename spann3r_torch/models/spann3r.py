@@ -11,6 +11,11 @@ reference-frame head, value encoder, memory write). The target-frame head
 runs once per video on the carried decoder hook states. The engine also
 takes a stream a frame at a time (`InferenceEngine.step` / `run`), over
 the same pair step, memory read and memory write.
+
+Training (`forward_train`) runs the JAX package's training memory
+semantics over a clip: one batched encoder pass, then per pair the
+training read (memory dropout), the pair step with both heads, and an
+unconditional append, all under autograd.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from torch import nn
 from ..config import BF16, Precision, Spann3RConfig, ViTConfig
 from ..ops.layers import gelu, init_conv_, init_modules_, layer_norm, linear
 from . import dust3r as d3
-from .memory import MemoryState, add_mem_check, init_memory, memory_read
+from .memory import (MemoryState, add_mem, add_mem_check, init_memory,
+                     memory_read, memory_read_train)
 from .vit import Block, PatchEmbed, encoder_apply, patch_embed_apply
 
 
@@ -148,6 +154,59 @@ def head2_from_hooks(model: Spann3R, cfg: Spann3RConfig,
     """The deferred target-frame head on carried decoder hook states."""
     states = d3.states_from_hooks(cfg.dust3r, hook_states)
     return d3.downstream_head(model.dust3r, 2, states, img_hw, cfg.dust3r, prec)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def forward_train(model: Spann3R, frames: torch.Tensor, cfg: Spann3RConfig,
+                  prec: Precision = BF16,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """frames (B, T, H, W, 3) normalised -> the per-pair predictions stacked
+    over time (JAX `forward_train`, spann3r_tpu/models/spann3r.py:174-256).
+
+    Training memory semantics: an unconditional append, attn_thresh = 0,
+    memory dropout at cfg.memory.mem_dropout when `generator` is given
+    (drawn from it), and the raw reference features fused on the first
+    pair (JAX reads the empty bank there and discards the result, so the
+    read is skipped). Differentiable; the activations are kept (JAX's
+    remat switches have no counterpart here).
+
+    Returns {'pts3d_1', 'conf_1'} (reference frame t) and {'pts3d_2',
+    'conf_2'} (target frame t + 1), each (T - 1, B, H, W[, 3]) fp32, all in
+    frame 0's coordinates."""
+    b, t, h, w, _ = frames.shape
+    dcfg = cfg.dust3r
+    p_tokens = (h // dcfg.patch_size) * (w // dcfg.patch_size)
+    feats, pos = d3.encode_image(model.dust3r, frames.reshape(b * t, h, w, 3),
+                                 dcfg, prec)
+    feats = feats.reshape(b, t, p_tokens, -1).transpose(0, 1)   # (T,B,P,D)
+    pos = pos[:b]
+    mem = init_memory(b, (t - 1) * p_tokens, cfg.attn_head_out,
+                      dtype=prec.compute_dtype, device=frames.device)
+    rate = cfg.memory.mem_dropout if generator is not None else 0.0
+    ys: Dict[str, List[torch.Tensor]] = {
+        "pts3d_1": [], "conf_1": [], "pts3d_2": [], "conf_2": []}
+    feat_k2 = None
+    for i in range(t - 1):
+        feat1, feat2 = feats[i], feats[i + 1]
+        if i == 0:
+            feat_fuse = feat1
+        else:
+            feat_fuse, mem = memory_read_train(model, mem, feat_k2,
+                                               attn_thresh=0.0,
+                                               dropout_rate=rate,
+                                               generator=generator)
+        out = pair_step(model, cfg, feat_fuse, feat1, feat2, pos, (h, w),
+                        prec)
+        mem = add_mem(mem, out.feat_k1, out.cur_v + out.feat_k1)
+        feat_k2 = out.feat_k2
+        for j, res in ((1, out.res1), (2, out.res2)):
+            ys[f"pts3d_{j}"].append(res["pts3d"])
+            ys[f"conf_{j}"].append(res["conf"])
+    return {key: torch.stack(v) for key, v in ys.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ non-zero code.
 
 Each kernel wrapper adds one to its count in `LAUNCHES` when it launches
 its kernel, and nowhere else, so a run can show that it went through the
-kernels.
+kernels. `KERNELS` are the forward kernels that every inference path
+launches; `BACKWARD_KERNELS` are the backward launches that only training
+makes: the SDPA backward (`csrc/sdpa_bwd.cu`) and the RoPE kernel at
+sign -1 on the gradients, counted apart from its forward launches.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 KERNELS = ("rope2d", "sdpa", "memory_read")
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+BACKWARD_KERNELS = ("sdpa_bwd", "rope2d_bwd")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + BACKWARD_KERNELS}
 
 # dtype codes shared with the C entry points
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,9 +56,13 @@ _SIGNATURES = {
     "spann3r_rope2d": [_i32, ctypes.c_char_p, ctypes.c_char_p,
                        ctypes.c_char_p, _i32, _i32, _i32, _i32, _i32, _i32,
                        _i32, _f32, _f32, _vp],
-    # q, k, v, out, dtype, B, H, N, M, D, 4 x (sb, sh, sn), scale, stream
-    "spann3r_sdpa": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32]
-                    + [_i64] * 12 + [_f32, _vp],
+    # q, k, v, out, lse (or null), dtype, B, H, N, M, D, 4 x (sb, sh, sn),
+    # scale, stream
+    "spann3r_sdpa": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+                     _i32] + [_i64] * 12 + [_f32, _vp],
+    # q, k, v, dout, lse, drow, dq, dk, dv, dtype, B, H, N, M, D,
+    # 7 x (sb, sh, sn), scale, stream
+    "spann3r_sdpa_bwd": [_vp] * 9 + [_i32] * 6 + [_i64] * 21 + [_f32, _vp],
     # q, k, v, size, out, asum, workspace, dtype, B, P, C, D, scale,
     # attn_thresh, stream
     "spann3r_memory_read": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32,
@@ -70,7 +78,7 @@ build_seconds: Optional[float] = None
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 

@@ -17,6 +17,13 @@ PyTorch version, a CUDA tensor the CUDA kernel (`csrc/rope2d.cu`), which
 rotates q and k in one launch, reads strided views (the q/k slices of the
 qkv projection, positions expanded over the batch) through their strides
 and writes contiguous results.
+
+Under autograd (a CUDA input that requires grad, grad mode on) they go
+through `RopeKernel`, whose backward is the same kernel at the opposite
+sign on the gradients of q and k, in one launch (counted as
+`rope2d_bwd`); the gradients are read through their strides, whatever
+layout autograd gives them (a copy only where the last dim is not
+contiguous). The positions get no gradient.
 """
 from __future__ import annotations
 
@@ -99,12 +106,14 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch(ops: Sequence[Tuple[torch.Tensor, torch.Tensor]], base: float,
-            sign: float, tile: Optional[int] = None) -> List[torch.Tensor]:
+            sign: float, tile: Optional[int] = None,
+            counter: str = "rope2d") -> List[torch.Tensor]:
     """One kernel launch over one or two (tokens, pos) operands that share
     B, H, D, dtype and device (N may differ). Returns the rotated tokens,
     each a new contiguous (B, H, N, D) tensor. `tile` (tokens per block)
     defaults to `token_tile`'s choice. The host work is kept small: the
-    decoder calls this ~1100 times per 24 frames from a host-bound loop."""
+    decoder calls this ~1100 times per 24 frames from a host-bound loop.
+    `counter` names the launch count it adds to."""
     if not 1 <= len(ops) <= 2:
         raise ValueError(f"the kernel takes one or two operands, got {len(ops)}")
     x0 = ops[0][0]
@@ -158,9 +167,36 @@ def _launch(ops: Sequence[Tuple[torch.Tensor, torch.Tensor]], base: float,
         struct.pack(f"{n_ops}i", *n_tokens), int(shared),
         _kernels.DTYPE_CODE[x0.dtype], b, h, d, vec, tile, float(base),
         float(sign), _kernels.stream_ptr(dev))
-    _kernels.check(code, "rope2d")
-    _kernels.LAUNCHES["rope2d"] += 1
+    _kernels.check(code, counter)
+    _kernels.LAUNCHES[counter] += 1
     return outs
+
+
+class RopeKernel(torch.autograd.Function):
+    """RoPE2D of one or two tensors on the card under autograd. apply(base,
+    sign, x0, pos0[, x1, pos1]) -> a tuple of the rotated tensors; the
+    backward rotates their gradients by -sign in one launch."""
+
+    @staticmethod
+    def forward(ctx, base, sign, *args):
+        poss = args[1::2]
+        ctx.save_for_backward(*poss)
+        ctx.base, ctx.sign = base, sign
+        return tuple(_launch(list(zip(args[0::2], poss)), base, sign))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g if g.stride(-1) == 1 else g.contiguous() for g in grads]
+        outs = _launch(list(zip(grads, ctx.saved_tensors)), ctx.base,
+                       -ctx.sign, counter="rope2d_bwd")
+        res = [None, None]
+        for g in outs:
+            res += [g, None]
+        return tuple(res)
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def rope_2d_cuda(tokens: torch.Tensor, pos: torch.Tensor,
@@ -186,6 +222,8 @@ def rope_2d(tokens: torch.Tensor, pos: torch.Tensor, base: float = 100.0,
     if tokens.device.type == "cpu":
         return rope_2d_plain(tokens, pos, base, sign)
     if tokens.device.type == "cuda":
+        if _wants_grad(tokens):
+            return RopeKernel.apply(base, sign, tokens, pos)[0]
         return rope_2d_cuda(tokens, pos, base, sign)
     raise NotImplementedError(f"rope_2d on {tokens.device}")
 
@@ -200,5 +238,7 @@ def rope_2d_qk(q: torch.Tensor, k: torch.Tensor, qpos: torch.Tensor,
         return (rope_2d_plain(q, qpos, base, sign),
                 rope_2d_plain(k, kpos, base, sign))
     if q.device.type == "cuda":
+        if _wants_grad(q, k):
+            return RopeKernel.apply(base, sign, q, qpos, k, kpos)
         return rope_2d_qk_cuda(q, k, qpos, kpos, base, sign)
     raise NotImplementedError(f"rope_2d_qk on {q.device}")

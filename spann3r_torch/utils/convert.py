@@ -15,10 +15,15 @@ names), so both packages can run on the same weights:
   - block stacks (leading depth axis) -> one entry per block index
 
 `load_spann3r_checkpoint` loads a published Spann3R `.pth` into the port:
-its module paths are the published keys already.
+its module paths are the published keys already. `load_dust3r_checkpoint`
+loads a DUSt3R `.pth` into the port's `dust3r` submodule. Both read a
+training checkpoint too (`args` stored as an `argparse.Namespace`, as the
+reference's and the port's trainers write it), with `weights_only` loading
+that admits that one class besides tensors and containers.
 """
 from __future__ import annotations
 
+import argparse
 import re
 from typing import Any, Dict, Mapping
 
@@ -179,16 +184,41 @@ def is_alias_or_vestigial_key(key: str) -> bool:
     return any(p.search(key) for p in _ALIAS_OR_VESTIGIAL)
 
 
-def load_spann3r_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a Spann3R `.pth` (a state dict, or a dict holding it under
-    'model'; keys with or without a DDP `module.` prefix) into `model`,
-    strictly, with the alias and vestigial keys dropped. Returns the
-    model."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """A `.pth` read with `weights_only=True`, admitting the
+    `argparse.Namespace` of the training `args` besides tensors and
+    containers."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a checkpoint (itself, or under 'model'), without a
+    DDP `module.` prefix and without the alias and vestigial keys."""
+    ckpt = read_checkpoint(path)
     state = ckpt.get("model", ckpt)
     state = {(k[len("module."):] if k.startswith("module.") else k): v
              for k, v in state.items()}
-    state = {k: v for k, v in state.items()
-             if not is_alias_or_vestigial_key(k)}
-    model.load_state_dict(state, strict=True)
+    return {k: v for k, v in state.items() if not is_alias_or_vestigial_key(k)}
+
+
+def load_spann3r_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a Spann3R `.pth` (a state dict, or a dict holding it under
+    'model', like the training checkpoints; keys with or without a DDP
+    `module.` prefix) into `model`, strictly, with the alias and vestigial
+    keys dropped. Returns the model."""
+    model.load_state_dict(_model_state(path), strict=True)
     return model
+
+
+def load_dust3r_checkpoint(path: str, dust3r: torch.nn.Module) -> torch.nn.Module:
+    """Load a DUSt3R `.pth` into the port's `dust3r` submodule, strictly.
+    A checkpoint without a second decoder gives the first one's weights to
+    both (ref dust3r/model.py:94-101; the JAX package's convert_dust3r).
+    Returns the submodule."""
+    state = _model_state(path)
+    if not any(k.startswith("dec_blocks2.") for k in state):
+        state.update({"dec_blocks2." + k[len("dec_blocks."):]: v
+                      for k, v in state.items() if k.startswith("dec_blocks.")})
+    dust3r.load_state_dict(state, strict=True)
+    return dust3r

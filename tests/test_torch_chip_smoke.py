@@ -239,7 +239,7 @@ def test_boxroom_batch_is_a_collated_scene():
 
 def _line(**kw):
     line = {k: 1 for k in chip_smoke.BENCH_KEYS}
-    line.update(value=20.5, mfu_pct=2.3)
+    line.update(value=20.5, mfu_pct=2.3, tf32={"matmul": False, "conv": False})
     line.update(kw)
     return line
 
@@ -253,7 +253,8 @@ def test_bench_line_check():
     assert chip_smoke.BENCH_KEYS == STREAM_KEYS
     chip_smoke.check_bench_line(_line())
     for bad in (_line(mfu_pct=None), _line(mfu_pct=0.0), _line(mfu_pct=150.0),
-                _line(value=0.0), _line(chunk_fps=[1.0])):
+                _line(value=0.0), _line(chunk_fps=[1.0]),
+                _line(tf32={"matmul": True, "conv": False})):
         with pytest.raises(AssertionError):
             chip_smoke.check_bench_line(bad)
     line = _line()
@@ -270,3 +271,100 @@ def test_missing_host_packages(monkeypatch):
     monkeypatch.setattr(importlib.util, "find_spec",
                         lambda name, *a: None if name == "cv2" else real(name, *a))
     assert chip_smoke.missing_host_packages() == ["cv2"]
+
+
+# ---------------------------------------------------------------------------
+# the training phase's launch counts
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def autograd_kernels(monkeypatch):
+    """The card's dispatch of sdpa and rope_2d_qk on CPU tensors: under
+    autograd through their autograd Functions (forward and backward
+    launches counted), with the kernels' plain versions in the launches."""
+    from spann3r_torch.ops import _kernels
+
+    def sdpa_cuda(q, k, v, scale, with_lse=False):
+        _kernels.LAUNCHES["sdpa"] += 1
+        out = attention.sdpa_plain(q, k, v, scale)
+        lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(
+            -1, -2)) * scale, dim=-1)
+        return (out, lse) if with_lse else out
+
+    def sdpa_backward_cuda(q, k, v, dout, lse, scale):
+        _kernels.LAUNCHES["sdpa_bwd"] += 1
+        return attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+
+    def launch(ops, base, sign, tile=None, counter="rope2d"):
+        _kernels.LAUNCHES[counter] += 1
+        return [rope.rope_2d_plain(x, p, base, sign) for x, p in ops]
+
+    def grad(*ts):
+        return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+    monkeypatch.setattr(attention, "sdpa_cuda", sdpa_cuda)
+    monkeypatch.setattr(attention, "sdpa_backward_cuda", sdpa_backward_cuda)
+    monkeypatch.setattr(rope, "_launch", launch)
+    monkeypatch.setattr(attention, "sdpa", lambda q, k, v, s: (
+        attention.SDPAKernel.apply(q, k, v, s) if grad(q, k, v)
+        else attention.sdpa_cuda(q, k, v, s)))
+    monkeypatch.setattr(attention, "rope_2d_qk", lambda q, k, qp, kp, base=100.0,
+                        sign=1.0: (rope.RopeKernel.apply(base, sign, q, qp, k, kp)
+                                   if grad(q, k) else
+                                   tuple(rope._launch([(q, qp), (k, kp)], base,
+                                                      sign))))
+    _kernels.reset_launches()
+    yield _kernels
+    _kernels.reset_launches()
+
+
+@pytest.mark.parametrize("mem_pos_enc", [False, True])
+def test_train_launch_counts(autograd_kernels, mem_pos_enc):
+    """chip_smoke's train_launches is what one train step launches: each
+    kernel's forward and backward (none in the last pair's value encoder,
+    whose output nothing reads), no memory-read kernel; with mem_pos_enc
+    the value encoder rotates too."""
+    import dataclasses
+
+    import numpy as np
+
+    from spann3r_torch import config as C
+    from spann3r_torch import training
+    from spann3r_torch.models import spann3r as S
+
+    cfg = C.Spann3RConfig(
+        dust3r=C.DUSt3RConfig(img_size=(32, 32), patch_size=16,
+                              enc=C.ViTConfig(dim=64, depth=2, num_heads=4),
+                              dec=C.ViTConfig(dim=48, depth=3, num_heads=2),
+                              head_type="linear"),
+        value_enc_depth=2, value_enc_dim=64, value_enc_heads=4,
+        attn_head_in=64 + 48, attn_head_out=64, mem_pos_enc=mem_pos_enc)
+    if mem_pos_enc:   # value tokens from the decoder: dim 48
+        cfg = dataclasses.replace(cfg, use_feat=True, value_enc_dim=48,
+                                  value_enc_heads=2)
+    model = S.build_spann3r(cfg, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    t, b = 4, 2
+    batch = {"img": (rng.standard_normal((t, b, 32, 32, 3)) * 0.3).astype(np.float32),
+             "pts3d": (rng.standard_normal((t, b, 32, 32, 3)) + 2).astype(np.float32),
+             "valid_mask": np.ones((t, b, 32, 32), bool),
+             "camera_pose": np.broadcast_to(np.eye(4, dtype=np.float32),
+                                            (t, b, 4, 4)).copy()}
+    opt = training.make_optimizer(0.05)
+    step = training.make_train_step(cfg, C.FP32, opt)
+    _, m = step(model, opt.init(dict(model.named_parameters())), batch,
+                torch.Generator().manual_seed(1), 1e-4, 0.4)
+    assert torch.isfinite(m["loss"])
+    want = chip_smoke.train_launches(cfg, t)
+    assert autograd_kernels.launch_counts() == want
+    assert want["sdpa_bwd"] == want["sdpa"] - 2
+    assert (want["rope2d"] == want["sdpa"]) == mem_pos_enc
+
+
+def test_parity_train_config_runs_the_kernels():
+    """The train-step parity's narrow configuration has head dim 64 in
+    every stack, so that the card runs K2 there."""
+    cfg = chip_smoke.parity_train_cfg()
+    assert cfg.dust3r.enc.head_dim == cfg.dust3r.dec.head_dim == 64
+    assert cfg.value_enc_dim // cfg.value_enc_heads == 64
+    assert cfg.dust3r.img_size == chip_smoke.HW_224

@@ -252,3 +252,113 @@ def test_int8_linear_on_the_card(dev, dt):
                                1).to(dev)
         with pytest.raises(ValueError, match="multiples of 8"):
             layers.linear(m, x[0, :, :764].to(dev))      # K = 764
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training)
+# ---------------------------------------------------------------------------
+
+def _assert_scaled(got, want, tol):
+    """|got - want| <= tol * (rms(want) + |want|) everywhere: sums taken in
+    another order differ by a share of the summands' size, not of each
+    result's."""
+    got, want = got.float(), want.float()
+    bound = tol * (want.pow(2).mean().sqrt() + want.abs())
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def _sdpa_operands(layout, dtype, dev, n, m, b=2, h=3):
+    """q (B, H, N, 64), k and v (B, H, M, 64): 'self' slices one qkv
+    projection (N = M), 'cross' separate (B, *, H*64) projections."""
+    if layout == "self":
+        qkv = _randn((b, n, 3, h, 64), dtype, dev, 50).permute(2, 0, 3, 1, 4)
+        return qkv[0], qkv[1], qkv[2]
+    q = _randn((b, n, h * 64), dtype, dev, 51).view(b, n, h, 64).transpose(1, 2)
+    k, v = (_randn((b, m, h * 64), dtype, dev, s).view(b, m, h, 64)
+            .transpose(1, 2) for s in (52, 53))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("layout,n,m", [("self", 37, 37), ("self", 196, 196),
+                                        ("cross", 37, 101), ("cross", 130, 5)])
+def test_sdpa_backward_kernel(dev, dt, layout, n, m):
+    """The backward kernel against sdpa_backward_plain on the same inputs:
+    ragged query and key tiles, q/k/v strided views, dO a strided view
+    (the merged heads' gradient) and one with row stride 128; the
+    forward's logsumexp against torch.logsumexp, and the forward output's
+    bits unchanged when the logsumexp is asked for."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands(layout, dtype, dev, n, m)
+    out, lse = attention.sdpa_cuda(q, k, v, 0.125, with_lse=True)
+    assert torch.equal(out, attention.sdpa_cuda(q, k, v, 0.125))
+    want_lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(
+        -1, -2)) * 0.125, dim=-1)
+    _assert_scaled(lse, want_lse, 1e-5)
+    b, h = q.shape[:2]
+    douts = (_randn((b, n, h, 64), dtype, dev, 54).transpose(1, 2),
+             _randn((b, h, n, 128), dtype, dev, 55)[..., :64])
+    for dout in douts:
+        before = _kernels.LAUNCHES["sdpa_bwd"]
+        got = attention.sdpa_backward_cuda(q, k, v, dout, lse, 0.125)
+        assert _kernels.LAUNCHES["sdpa_bwd"] == before + 1
+        want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            _assert_scaled(g, w, 1e-4 if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_sdpa_autograd_on_the_card(dev, dt):
+    """sdpa under autograd on the card (forward and backward kernels)
+    against plain autograd of sdpa_plain on the CPU, in fp32 on the same
+    values; inference (no grad) launches no backward and asks for no
+    logsumexp."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands("cross", dtype, dev, 70, 45)
+    w = _randn(q.shape, torch.float32, dev, 56)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(_kernels.LAUNCHES)
+    out = attention.sdpa(*leaves, 0.125)
+    grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+    assert _kernels.LAUNCHES["sdpa"] == before["sdpa"] + 1
+    assert _kernels.LAUNCHES["sdpa_bwd"] == before["sdpa_bwd"] + 1
+    cpu = [t.detach().cpu().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (attention.sdpa_plain(*cpu, 0.125) * w.cpu()).sum(), cpu)
+    for g, ww in zip(grads, want):
+        _assert_scaled(g.cpu(), ww, 1e-4 if dt == "fp32" else 3 * tol)
+    with torch.no_grad():
+        attention.sdpa(*leaves, 0.125)
+    assert _kernels.LAUNCHES["sdpa_bwd"] == before["sdpa_bwd"] + 1
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("grad_layout", ["heads", "strided", "broadcast"])
+def test_rope_backward_kernel(dev, dt, grad_layout):
+    """rope_2d_qk under autograd: one backward launch rotates both
+    gradients by the inverse rotation, whatever layout they arrive in
+    (a (B, N, H, D) view, a last dim of stride 2, stride 0 over the
+    heads); the positions get none."""
+    dtype, tol = DTYPES[dt]
+    qkv = _randn((2, 37, 3, 3, 64), dtype, dev, 60).permute(2, 0, 3, 1, 4)
+    q, k = (t.detach().clone().requires_grad_(True) for t in (qkv[0], qkv[1]))
+    pos = torch.randint(0, 32, (37, 2), device=dev,
+                        dtype=torch.int32)[None].expand(2, -1, -1)
+    if grad_layout == "heads":
+        gs = [_randn((2, 37, 3, 64), dtype, dev, s).transpose(1, 2)
+              for s in (61, 62)]
+    elif grad_layout == "strided":
+        gs = [_randn((2, 3, 37, 128), dtype, dev, s)[..., ::2] for s in (61, 62)]
+    else:
+        gs = [_randn((2, 1, 37, 64), dtype, dev, s).expand(2, 3, 37, 64)
+              for s in (61, 62)]
+    before = dict(_kernels.LAUNCHES)
+    qr, kr = rope.rope_2d_qk(q, k, pos, pos, 100.0)
+    dq, dk = torch.autograd.grad((qr, kr), (q, k), grad_outputs=gs)
+    assert _kernels.LAUNCHES["rope2d"] == before["rope2d"] + 1
+    assert _kernels.LAUNCHES["rope2d_bwd"] == before["rope2d_bwd"] + 1
+    rope_tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for got, g in ((dq, gs[0]), (dk, gs[1])):
+        _assert_close(got, rope.rope_2d_plain(g, pos, 100.0, -1.0), rope_tol)

@@ -162,12 +162,13 @@ def test_bench_full_width_flops():
 
 
 # the keys of the JSON line of the JAX package's bench.py (bench.py:268-289,
-# :180-191), plus the card's name
+# :180-191), plus the card's name and the port's TF32 policy
 STREAM_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
                "mfu_pct", "streams", "precision", "sync", "reps",
-               "fps_spread", "device"}
+               "fps_spread", "tf32", "device"}
 OFFLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
-                "frames", "mode", "reps", "fps_spread", "precision", "device"}
+                "frames", "mode", "reps", "fps_spread", "precision", "tf32",
+                "device"}
 
 
 @pytest.mark.parametrize("flags,keys", [
@@ -182,6 +183,7 @@ def test_bench_line(flags, keys, tmp_path):
     line = tbench.run(args, cfg=_cfg(TC, "dpt"))
     assert set(line) == keys
     assert line["value"] > 0 and line["reps"] == 2 and line["device"] == "cpu"
+    assert line["tf32"] == {"matmul": False, "conv": False}
     assert line["fps_spread"][0] <= line["fps_spread"][1]
     if "--offline" not in flags:
         assert line["mfu_pct"] is None       # no peak for the CPU

@@ -46,10 +46,17 @@ COPIES = [
     "habitat_gen/backends.py", "datasets/cropping.py", "datasets/base.py",
     "datasets/loader.py", "datasets/demo.py", "datasets/seven_scenes.py",
     "datasets/nrgbd.py", "datasets/dtu.py", "datasets/synth.py",
+    "datasets/sampler.py", "utils/metrics.py",
 ]
 # the native library builds beside the port's kernels, under a name that
 # is renamed into place
 PORT_ONLY_LINES = {
+    # a world of one unless torch.distributed is initialised
+    "utils/metrics.py": {
+        "if not (dist.is_available() and dist.is_initialized()):",
+        "arr = torch.tensor([self.count, self.total], dtype=torch.float64)",
+        "dist.all_reduce(arr)", "self.count = int(arr[0])",
+        "self.total = float(arr[1])"},
     "native/__init__.py": {
         '_LIB = os.path.join(os.path.dirname(_DIR), "_build", "libgeomlib.so")',
         "# built beside the port's CUDA kernels, under a temporary name that is",
@@ -61,6 +68,11 @@ PORT_ONLY_LINES = {
         "os.replace(tmp, _LIB)"},
 }
 JAX_ONLY_LINES = {
+    "utils/metrics.py": {
+        "if jax.process_count() == 1:",
+        "arr = process_allgather(np.array([self.count, self.total]))",
+        "self.count = int(arr[:, 0].sum())",
+        "self.total = float(arr[:, 1].sum())"},
     "native/__init__.py": {
         '_LIB = os.path.join(_DIR, "libgeomlib.so")',
         'cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", _LIB]'},

@@ -250,10 +250,20 @@ def test_check_sim_vs_jax():
 
 
 def test_training_read_not_ported():
-    """Reads with memory dropout arrive with training; until then they
-    raise instead of silently reading without dropout."""
+    """Reads with memory dropout are the training read's
+    (`memory_read_train`, ported with training): the inference read takes
+    no dropout, so asking it for dropout raises instead of silently reading
+    without it, and the training read applies it."""
     _, tn = _norms(32)
     state = TM.init_memory(1, C, D, dtype=torch.float32)
-    q = torch.zeros(1, P, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    g = torch.Generator().manual_seed(0)
+    state = state._replace(k=torch.randn(1, C, D, generator=g),
+                           v=torch.randn(1, C, D, generator=g),
+                           size=torch.tensor([C // 2], dtype=torch.int32))
+    q = torch.randn(1, P, D, generator=g)
+    with pytest.raises(TypeError, match="dropout_rate"):
         TM.memory_read(tn, state, q, attn_thresh=0.0, dropout_rate=0.15)
+    plain, _ = TM.memory_read_train(tn, state, q, dropout_rate=0.15)
+    dropped, _ = TM.memory_read_train(tn, state, q, dropout_rate=0.15,
+                                      generator=torch.Generator().manual_seed(1))
+    assert not torch.equal(plain, dropped)
