@@ -73,7 +73,8 @@ Phases, each printing its results; any failure raises and exits non-zero:
                largest |grad|).
 Phase 3 also holds K2's backward kernel and K3 at sign -1 (the backward)
 against their plain versions at the training shapes and the 512 encoder's,
-with planted faults, and times them (K2's library time: the library's
+with planted faults (K2's: one in each of dq, dk and dv), and times them
+(K2's library time: the library's
 forward + backward minus its forward). Phase 7 also measures what TF32 on
 would change in the slice's pointmaps. Phase 3 also runs K2 and K3 at the
 offline shapes: the encoder on 8 frames,
@@ -562,6 +563,22 @@ BWD_SHAPES = (("train encoder", 10, 16, 196), ("train decoder", 2, 12, 196),
               ("train value encoder", 2, 16, 196), ("encoder 512", 16, 16, 768))
 
 
+def sdpa_bwd_without_tails(q, k, v, dout, lse, scale):
+    """sdpa_backward_plain's dq with the last 64 keys' terms left out and
+    its dv with the last 64 queries' terms left out: the faults of a sweep
+    that skips its last tile."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    ds = ds.to(q.dtype).float()
+    ds[..., -64:] = 0.0
+    pr = p.to(v.dtype).float()
+    pr[..., -64:, :] = 0.0
+    return (torch.matmul(ds, k.float()).to(q.dtype),
+            torch.matmul(pr.transpose(-1, -2), dout.float()).to(q.dtype))
+
+
 def backward_cases(case, planted, dtype, randn, records):
     """K2's backward kernel against sdpa_backward_plain and K3 at sign -1
     on gradients against rope_2d_plain, on the card, with the layouts
@@ -604,12 +621,21 @@ def backward_cases(case, planted, dtype, randn, records):
             library_minus=lib_fwd)
         if main:
             records["sdpa_bwd"].setdefault("by_shape", {})[label] = rec
-            # planted fault: dk of the last key tile left out
-            want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)[1]
-            wrong = want.clone()
-            wrong[..., -64:, :] = 0.0
-            planted(f"sdpa_bwd {label} {shape}: dk without its last key "
-                    f"tile", wrong, want, TOL_BF16)
+            # planted faults, one in each output: dq without the last key
+            # tile's terms, dk of the last key tile left out, dv without
+            # the last query tile's terms
+            want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)
+            wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse,
+                                                        0.125)
+            wrong_dk = want[1].clone()
+            wrong_dk[..., -64:, :] = 0.0
+            for what, wrong, i in (
+                    ("dq without its last key tile", wrong_dq, 0),
+                    ("dk without its last key tile", wrong_dk, 1),
+                    ("dv without its last query tile", wrong_dv, 2)):
+                planted(f"sdpa_bwd {label} {shape}: {what}", wrong, want[i],
+                        TOL_BF16)
+            del want, wrong_dq, wrong_dk, wrong_dv
         if "value" in label:
             continue
         grid = (patch_positions(14, 14, q.device) if n == 196 else

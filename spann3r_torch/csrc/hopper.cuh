@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// 16-byte cp.async into a 128-byte-swizzled shared-memory tile, wgmma
+// 16-byte cp.async into a 128-byte-swizzled shared-memory tile (and 4-byte
+// cp.async for per-row statistics), wgmma
 // shared-memory descriptors, the m64n64k16 bf16 wgmma (A from shared memory
 // or from registers), and named barriers for one warpgroup.
 //
@@ -45,6 +46,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared; zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -121,6 +131,15 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for A fragments in registers: keeps a fragment that an
+// in-flight wgmma reads alive (and unmoved) until after the wait
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 #define SPANN3R_D32                                                          \

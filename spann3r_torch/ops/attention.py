@@ -45,14 +45,17 @@ def sdpa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, N). P = exp(s - lse) is the fp32 softmax of the scaled logits s;
     dv takes P rounded to v's dtype (the forward multiplies that with v);
     the softmax VJP's row term is D = sum_j P dP with dP = dO v^T, all in
-    fp32. O is not needed: D is not formed as dO . O, which differs from
-    the VJP's once O is rounded to bf16."""
+    fp32; dS = P (dP - D) * scale is rounded to q's dtype for the dq and
+    dk products, as the kernel's tensor cores take it (a no-op in fp32).
+    O is not needed: D is not formed as dO . O, which differs from the
+    VJP's once O is rounded to bf16."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
     dof = dout.float()
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
     ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

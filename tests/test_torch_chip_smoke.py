@@ -73,6 +73,29 @@ def test_bound_rejects_a_missing_key_tile():
     assert not chip_smoke.compare("sdpa", wrong, want, chip_smoke.TOL_BF16)[0]
 
 
+@pytest.mark.parametrize("out", ["dq", "dv"])
+def test_bound_rejects_a_backward_without_its_last_tile(out):
+    """The planted K2-backward faults in dq (the last key tile's terms left
+    out) and dv (the last query tile's), at a ragged 196 tokens: rejected,
+    while the plain result passes against itself."""
+    qkv = _randn(2, 196, 3, 2, 64, seed=7).to(torch.bfloat16).permute(
+        2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    dout = _randn(2, 196, 2, 64, seed=8).to(torch.bfloat16).transpose(1, 2)
+    lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                          * 0.125, dim=-1)
+    want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)
+    wrong_dq, wrong_dv = chip_smoke.sdpa_bwd_without_tails(q, k, v, dout,
+                                                           lse, 0.125)
+    i, wrong = (0, wrong_dq) if out == "dq" else (2, wrong_dv)
+    assert wrong.dtype == torch.bfloat16 and wrong.shape == want[i].shape
+    assert chip_smoke.compare("sdpa_bwd", want[i], want[i],
+                              chip_smoke.TOL_BF16)[0]
+    ok, _, _, n_over = chip_smoke.compare("sdpa_bwd", wrong, want[i],
+                                          chip_smoke.TOL_BF16)
+    assert not ok and n_over > 0
+
+
 @pytest.mark.parametrize("thr", [0.0, 5e-3])
 def test_bound_rejects_a_missing_slot_range(thr):
     q, k, v = (_randn(1, n, 64, seed=s).to(torch.bfloat16)

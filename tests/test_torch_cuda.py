@@ -310,6 +310,28 @@ def test_sdpa_backward_kernel(dev, dt, layout, n, m):
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("layout,b,h,n,m", [
+    ("self", 10, 16, 196, 196), ("self", 2, 12, 196, 196),  # training
+    ("cross", 2, 3, 68, 196), ("cross", 2, 3, 196, 68)])    # 4-row tails
+def test_sdpa_backward_kernel_shapes(dev, dt, layout, b, h, n, m):
+    """The backward kernel at the training encoder's and decoder's shapes,
+    and with a ragged tail of 4 rows on the query side (68 = 64 + 4) and
+    on the key side, N != M: against sdpa_backward_plain, and two launches
+    give the same bits for dq, dk and dv (every output element has one
+    owner, no atomics)."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands(layout, dtype, dev, n, m, b=b, h=h)
+    _, lse = attention.sdpa_cuda(q, k, v, 0.125, with_lse=True)
+    dout = _randn((b, n, h, 64), dtype, dev, 57).transpose(1, 2)
+    got = attention.sdpa_backward_cuda(q, k, v, dout, lse, 0.125)
+    again = attention.sdpa_backward_cuda(q, k, v, dout, lse, 0.125)
+    want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        _assert_scaled(g, w, 1e-4 if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
 def test_sdpa_autograd_on_the_card(dev, dt):
     """sdpa under autograd on the card (forward and backward kernels)
     against plain autograd of sdpa_plain on the CPU, in fp32 on the same

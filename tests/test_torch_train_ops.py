@@ -23,6 +23,7 @@ from spann3r_tpu import losses as JL
 from spann3r_tpu.models import memory as JMEM
 from spann3r_tpu.models import spann3r as JS
 from spann3r_tpu.ops import attention as JATT
+from spann3r_tpu.ops import pallas_attention as JPATT
 from spann3r_tpu.ops import rope as JROPE
 from spann3r_torch import config as TC
 from spann3r_torch import losses as TL
@@ -79,6 +80,36 @@ def test_sdpa_grads_match_jax(n, m):
                                           lse, 0.125)
     for g, ww in zip(plain, want):
         _close(g, ww, OP_TOL)
+
+
+@pytest.mark.parametrize("n,m", [(196, 196), (37, 101), (130, 5)])
+def test_sdpa_backward_plain_bf16_matches_jax(n, m):
+    """sdpa_backward_plain on bf16 inputs (the kernel's rounding: P to bf16
+    for dv, dS to bf16 for dq and dk) against jax.vjp of the reference's
+    _sdpa_jnp (fused_sdpa's backward) on the same bf16 values, ragged
+    N = 196 and N != M included, within the card checks' bf16 bound
+    2e-2 * (rms + |want|): the two round at other places (the JAX VJP
+    rounds dP to bf16, the kernel dS)."""
+    rng = np.random.default_rng(3)
+    bf = jnp.bfloat16
+    q, k, v, g = (rng.standard_normal((2, 3, rows, 64)).astype(np.float32)
+                  for rows in (n, m, m, n))
+    jq, jk, jv, jg = (jnp.asarray(x, bf) for x in (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b, c: JPATT._sdpa_jnp(a, b, c, 0.125),
+                     jq, jk, jv)
+    want = vjp(jg)
+    tq, tk, tv, tg = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                      .to(torch.bfloat16) for x in (jq, jk, jv, jg))
+    lse = torch.logsumexp(torch.matmul(tq.float(), tk.float().transpose(
+        -1, -2)) * 0.125, dim=-1)
+    got = attention.sdpa_backward_plain(tq, tk, tv, tg, lse, 0.125)
+    for gt, w in zip(got, want):
+        assert gt.dtype == torch.bfloat16 and w.dtype == bf
+        gt = gt.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        bound = 2e-2 * (np.sqrt(np.mean(w ** 2)) + np.abs(w))
+        assert (np.abs(gt - w) <= bound).all(), float(
+            (np.abs(gt - w) / bound).max())
 
 
 def _rope_inputs(seed):

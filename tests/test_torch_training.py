@@ -13,7 +13,10 @@ which carry the model's fp32 differences); the first Adam step moves each
 weight by about lr * sign(grad), so a weight whose gradient is within
 rounding of zero may move the other way on the other side: the updates
 agree within 1e-3 * lr where the gradient is above 1e-5 of the largest,
-and elsewhere within 2 * lr * (1 + weight_decay * |w|).
+and elsewhere within 2 * lr * (1 + weight_decay * |w|), each plus one fp32
+spacing of the weight: the new weight is rounded to its own ulp (1.19e-7
+for a LayerNorm weight near 1.0, above 1e-3 * lr = 1e-7), and whether the
+two sides round to the same neighbour depends on the order of their sums.
 """
 import argparse
 import copy
@@ -96,14 +99,20 @@ def _check_updates(new, old, want_new, mu, lr=LR):
     above 1e-5 of the largest, the two updates agree within 1e-3 * lr;
     below, the gradient is rounding noise on either side (a k-projection
     bias, which softmax ignores) and may have either sign: there within
-    2 * lr * (1 + wd * |w|)."""
+    2 * lr * (1 + wd * |w|). Both bounds add one fp32 spacing of the
+    weight: w + update is rounded to the weight's ulp (1.19e-7 near 1.0,
+    above 1e-3 * lr), and the two sides may round it to either
+    neighbour."""
     mmax = max(float(v.abs().max()) for v in mu.values())
     for name, w in new.items():
         err = np.abs((w - old[name]).numpy()
                      - (want_new[name].numpy() - old[name].numpy()))
+        ulp = np.spacing(np.maximum(np.abs(old[name].numpy()),
+                                    np.abs(w.numpy())).astype(np.float32))
         sure = np.abs(mu[name].numpy()) > 1e-5 * mmax
-        assert (err[sure] <= 1e-3 * lr).all(), name
-        assert (err <= 2 * lr * (1 + WD * np.abs(old[name].numpy())) + 1e-9).all()
+        assert (err[sure] <= 1e-3 * lr + ulp[sure]).all(), name
+        assert (err <= 2 * lr * (1 + WD * np.abs(old[name].numpy()))
+                + ulp + 1e-9).all()
 
 
 # ---------------------------------------------------------------------------
