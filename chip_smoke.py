@@ -61,8 +61,18 @@ Phases, each printing its results; any failure raises and exits non-zero:
                dropout): K2 and K3 launches, forward and backward, of one
                step against train_launches; losses and grad norms finite;
                the weights moved; the median step time and peak memory;
-               on one fixed batch at constant LR the last loss below the
-               first;
+               the same for remat and remat_scan (launches with the
+               recomputed forwards against train_launches, step time,
+               peak memory); on one fixed batch at constant LR the last
+               loss below the first; the FP32 gradients of the three remat
+               settings on one batch with dropout on, within
+               REMAT_GRAD_TOL of the largest |grad|;
+  11. gate   - (run after phase 10) the convergence gate's miniature:
+               run_gate on its small configuration at 112 x 112, 2 epochs
+               of 15 steps at B = 8, remat on: the held-out eval loss must
+               fall, every kernel launched; the chamfer before and after,
+               and the int8, int8 + activations and BF16_FAST relative
+               chamfer changes on its checkpoint-best (reported);
   9. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
                offline: the card (kernels) against the CPU (plain
                versions), the same frame order, tolerance 1e-3; the
@@ -73,7 +83,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
                largest |grad|).
 Phase 3 also holds K2's backward kernel and K3 at sign -1 (the backward)
 against their plain versions at the training shapes and the 512 encoder's,
-with planted faults (K2's: one in each of dq, dk and dv), and times them
+with planted faults (K2's: one in each of dq, dk and dv), K2's and K3's
+forwards at the training shapes (records under "train_by_shape"), and
+times them
 (K2's library time: the library's
 forward + backward minus its forward). Phase 7 also measures what TF32 on
 would change in the slice's pointmaps. Phase 3 also runs K2 and K3 at the
@@ -588,7 +600,10 @@ def backward_cases(case, planted, dtype, randn, records):
     forward kernel. The library time of K2's backward is
     F.scaled_dot_product_attention forward + backward minus its forward.
     K3 takes no RoPE in the value encoder (mem_pos_enc off). The bf16
-    records of every shape go under the main record's "by_shape"."""
+    records of every shape go under the main record's "by_shape". The
+    forwards of K2 and K3 at the training shapes, which training launches
+    again when it recomputes a block, are checked and timed too; their bf16
+    records go under the forward records' "train_by_shape"."""
     import torch.nn.functional as F
 
     from spann3r_torch.models.vit import patch_positions
@@ -606,6 +621,16 @@ def backward_cases(case, planted, dtype, randn, records):
         lse_err = float((lse - want_lse).abs().max())
         if lse_err > 1e-4 * (1.0 + float(want_lse.abs().max())):
             raise AssertionError(f"sdpa {label} logsumexp off by {lse_err}")
+        if label.startswith("train"):
+            rec = case(
+                "sdpa", f"{label} forward ({b},{h},{n},{n})", dtype,
+                lambda: attention.sdpa_cuda(q, k, v, 0.125),
+                lambda: attention.sdpa_plain(q, k, v, 0.125), False,
+                (4.0 * b * h * n * n * 64, esize * 4.0 * b * h * n * 64),
+                run_library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=0.125))
+            if main:
+                records["sdpa"].setdefault("train_by_shape", {})[label] = rec
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125)
         work = (10.0 * b * h * n * n * 64,
@@ -641,6 +666,17 @@ def backward_cases(case, planted, dtype, randn, records):
         grid = (patch_positions(14, 14, q.device) if n == 196 else
                 patch_positions(HW_512[0] // 16, HW_512[1] // 16, q.device))
         pos = grid[None].expand(b, -1, -1)
+        if label.startswith("train"):
+            work = (3.0 * (q.numel() + k.numel()),
+                    2.0 * (q.numel() + k.numel()) * esize
+                    + grid.untyped_storage().nbytes())
+            rec = case(
+                "rope2d", f"{label} forward q+k ({b},{h},{n},64)", dtype,
+                lambda: rope.rope_2d_qk_cuda(q, k, pos, pos),
+                lambda: (rope.rope_2d_plain(q, pos, 100.0),
+                         rope.rope_2d_plain(k, pos, 100.0)), False, work)
+            if main:
+                records["rope2d"].setdefault("train_by_shape", {})[label] = rec
         dq, dk = (randn(b, n, h, 64, dtype=dtype).transpose(1, 2)
                   for _ in range(2))
         work = (3.0 * (dq.numel() + dk.numel()),
@@ -1342,24 +1378,62 @@ def phase_entry(cfg, model, card):
 TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_STEPS, TRAIN_FIXED_STEPS = 2, 5, 5e-5, 8, 5
 TRAIN_DATASET = ("SynthRoom(num_seq=16, num_frames=5, resolution=224, "
                  "seq_len=24, min_thresh=1, max_thresh=3, seed=777)")
+# the remat settings the phase also steps: (remat, remat_scan), each for
+# TRAIN_REMAT_STEPS steps after the settings-off run
+REMAT_SETTINGS = {"off": (False, False), "remat": (True, False),
+                  "remat_scan": (True, True)}
+TRAIN_REMAT_STEPS = 3
+# the gradients of the remat settings against remat off, on one batch with
+# memory dropout on (the same draws): the settings run the same operations
+# on the same inputs, so 1e-6 of the largest |grad|
+REMAT_GRAD_TOL = 1e-6
 
 
-def train_launches(cfg, t):
-    """Kernel launches of one train step on clips of t frames: the encoder
-    once on all B * t frames (each block one K3 and one K2), then per pair
-    (t - 1) both decoders (each block self and cross attention: K3 and K2
-    each) and the value encoder (K2 per block; K3 only with mem_pos_enc);
-    no K1 (the training read is plain PyTorch). Each backward is launched
-    as often as its forward but in the last pair's value encoder, whose
-    tokens go into a bank that nothing reads after them."""
+def train_launches_by_stage(cfg, t, remat=False, remat_scan=False,
+                           remat_enc=None):
+    """Kernel launches of one train step on clips of t frames, by kernel
+    and stage ('encoder' on B * t frames, 'decoder' and 'value encoder' on
+    B streams): the encoder once on all frames (each block one K3 and one
+    K2), then per pair (t - 1) both decoders (each block self and cross
+    attention: K3 and K2 each) and the value encoder (K2 per block; K3 only
+    with mem_pos_enc); no K1 (the training read is plain PyTorch). Each
+    backward is launched as often as its forward but in the last pair's
+    value encoder, whose tokens go into a bank that nothing reads after
+    them.
+
+    Rematerialisation adds the recomputed forwards; the backwards stay as
+    they are. `remat` recomputes each encoder block (unless `remat_enc` is
+    False: SPANN3R_NO_REMAT_ENC), each decoder block and each value-encoder
+    block whose backward runs, so not the last pair's. `remat_scan`
+    recomputes each pair's whole body, the last pair's value encoder
+    included: the recompute runs until every tensor its forward saved is
+    back. With both, a block inside the body runs a third time when its
+    own backward recomputes it."""
     pairs = t - 1
-    dec = 4 * cfg.dust3r.dec.depth
+    enc, dec = cfg.dust3r.enc.depth, 4 * cfg.dust3r.dec.depth
     val = cfg.value_enc_depth
     val_rope = val if cfg.mem_pos_enc else 0
-    rope = cfg.dust3r.enc.depth + pairs * (dec + val_rope)
-    sdpa = cfg.dust3r.enc.depth + pairs * (dec + val)
-    return {"rope2d": rope, "sdpa": sdpa, "memory_read": 0,
-            "sdpa_bwd": sdpa - val, "rope2d_bwd": rope - val_rope}
+    remat_enc = remat if remat_enc is None else remat and remat_enc
+    enc_runs = 1 + int(remat_enc)
+    dec_runs = pairs * (1 + int(remat) + int(remat_scan))
+    val_runs = pairs * (1 + int(remat_scan)) + int(remat) * (pairs - 1)
+
+    def stages(e, d, v):
+        return {"encoder": e, "decoder": d, "value encoder": v}
+
+    return {"rope2d": stages(enc * enc_runs, dec * dec_runs,
+                             val_rope * val_runs),
+            "sdpa": stages(enc * enc_runs, dec * dec_runs, val * val_runs),
+            "sdpa_bwd": stages(enc, dec * pairs, val * (pairs - 1)),
+            "rope2d_bwd": stages(enc, dec * pairs, val_rope * (pairs - 1))}
+
+
+def train_launches(cfg, t, remat=False, remat_scan=False, remat_enc=None):
+    """The launches of train_launches_by_stage, by kernel."""
+    out = {k: sum(v.values()) for k, v in train_launches_by_stage(
+        cfg, t, remat, remat_scan, remat_enc).items()}
+    return {"rope2d": out["rope2d"], "sdpa": out["sdpa"], "memory_read": 0,
+            "sdpa_bwd": out["sdpa_bwd"], "rope2d_bwd": out["rope2d_bwd"]}
 
 
 def phase_train(records, card):
@@ -1368,8 +1442,11 @@ def phase_train(records, card):
     batches through the trainer's dataset, sampler and loader: the launches
     of one step against train_launches, every step's loss and grad norm
     finite, the weights moved by the first step, the median step time and
-    the peak memory; then steps on one fixed batch at constant LR without
-    dropout, whose last loss must be below the first."""
+    the peak memory; the same with remat and with remat_scan (their
+    launches, step time and peak memory); then steps on one fixed batch at
+    constant LR without dropout, whose last loss must be below the first;
+    then the gradients of the three remat settings on one batch with
+    dropout on (remat_gradients)."""
     from spann3r_torch import config, training
     from spann3r_torch.datasets import build_dataset, make_sampler
     from spann3r_torch.datasets.loader import DataLoader
@@ -1433,6 +1510,46 @@ def phase_train(records, card):
         raise AssertionError("a train step's loss or grad norm is not finite")
     if not moved > 0:
         raise AssertionError("the first train step left the weights as they were")
+    by_setting = {"off": (statistics.median(steady), peak)}
+    for name, (remat, scan) in REMAT_SETTINGS.items():
+        if name == "off":
+            continue
+        rstep = training.make_train_step(cfg, config.BF16, opt,
+                                         grads_bf16=True, remat=remat,
+                                         remat_scan=scan)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rwalls = []
+        for i in range(TRAIN_REMAT_STEPS):
+            if i == 0:
+                _kernels.reset_launches()
+            t0 = time.perf_counter()
+            opt_state, m = rstep(model, opt_state, batches[i], gen, TRAIN_LR,
+                                 0.4)
+            torch.cuda.synchronize()
+            rwalls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                rcounts = _kernels.launch_counts()
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"{name}: a train step's loss is not "
+                                     f"finite")
+        rpeak = torch.cuda.max_memory_allocated()
+        rwant = train_launches(cfg, TRAIN_T, remat, scan)
+        by_setting[name] = (statistics.median(rwalls[1:]), rpeak)
+        log(f"[train] {name} (remat={int(remat)} remat_scan={int(scan)}): "
+            f"launches of step 1 {rcounts}, expected {rwant}; step ms "
+            f"{[round(x, 1) for x in rwalls]}, median of steps 2-"
+            f"{TRAIN_REMAT_STEPS} {by_setting[name][0]:.1f} ms; peak memory "
+            f"{rpeak / 2**30:.2f} GiB")
+        if rcounts != rwant:
+            raise AssertionError(f"{name} train launches {rcounts}, expected "
+                                 f"{rwant}")
+    log(f"[train] remat at B={TRAIN_B} T={TRAIN_T} 224 BF16 on {card}: "
+        + "; ".join(f"{k} {ms:.1f} ms/step, peak {pk / 2**30:.2f} GiB"
+                    for k, (ms, pk) in by_setting.items()))
+    for name, (remat, scan) in REMAT_SETTINGS.items():
+        log(f"[train] launches per step by stage, {name}: "
+            f"{train_launches_by_stage(cfg, TRAIN_T, remat, scan)}")
     fixed = []
     for _ in range(TRAIN_FIXED_STEPS):
         opt_state, m = step(model, opt_state, batches[0], None, TRAIN_LR, 0.4)
@@ -1443,9 +1560,123 @@ def phase_train(records, card):
         raise AssertionError("on one fixed batch the loss did not fall")
     for name in _kernels.BACKWARD_KERNELS:
         records[name]["launches"] = counts[name]
-    del model, opt_state, step
+    del opt_state, step
+    torch.cuda.empty_cache()
+    remat_gradients(model, cfg, batches[0])
+    del model
     torch.cuda.empty_cache()
     log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def remat_gradients(model, cfg, batch):
+    """The loss and the gradients of one batch with memory dropout on, the
+    same draws (a generator from SEED) under each remat setting, against
+    remat off: within REMAT_GRAD_TOL of the largest |grad|. FP32 on the
+    fp32 weights, so that the only difference a setting could make is the
+    recompute's (a bf16 activation would turn the run-to-run rounding of
+    atomic sums in the fp32 heads' backward into whole bf16 ulps)."""
+    from spann3r_torch import config, training
+
+    dev_batch = training.batch_to_device(batch, "cuda")
+    out = {}
+    for name, (remat, scan) in REMAT_SETTINGS.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = training.value_and_grad(
+            model, cfg, config.FP32, dev_batch, gen, 0.4, remat=remat,
+            remat_scan=scan)
+        torch.cuda.synchronize()
+        if name == "off":
+            ref_loss, ref, gmax = float(loss), grads, max(
+                float(g.abs().max()) for g in grads.values())
+            out[name] = (0.0, 0.0, time.perf_counter() - t0)
+            continue
+        worst = max(float((grads[k] - ref[k]).abs().max()) for k in ref)
+        out[name] = (abs(float(loss) - ref_loss), worst,
+                     time.perf_counter() - t0)
+        del grads
+    log(f"[train] FP32 gradients with dropout on, B={TRAIN_B} T={TRAIN_T}: "
+        f"max |grad| {gmax:.3e}; against remat off: "
+        + "; ".join(f"{k} loss diff {dl:.3e}, grads max abs diff {dg:.3e} "
+                    f"= {dg / gmax:.3e} of max |grad| ({sec:.2f} s)"
+                    for k, (dl, dg, sec) in out.items() if k != "off")
+        + f" (bound {REMAT_GRAD_TOL:g})")
+    for k, (dl, dg, _) in out.items():
+        if dl > REMAT_GRAD_TOL * (1.0 + abs(ref_loss)) or \
+                dg > REMAT_GRAD_TOL * gmax:
+            raise AssertionError(f"the {k} gradients differ from remat off")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: a miniature of the convergence gate and the serving gates
+# ---------------------------------------------------------------------------
+
+# the convergence gate's recipe (spann3r_torch.tools.convergence_gate) cut
+# to 2 epochs of 15 steps at B = 8; its serving gates on the checkpoint-best
+GATE_RES, GATE_EPOCHS, GATE_STEPS, GATE_B = 112, 2, 15, 8
+
+
+def phase_gate(card):
+    """run_gate on the gate's small configuration at 112 x 112 (remat on,
+    BF16, random init from seed 0): the held-out eval loss must fall; the
+    chamfer before and after and every kernel's launches are printed. Then
+    the int8 gate (weight-only, min_dim 256), the int8 gate with
+    activations (256 rows) and the BF16_FAST gate on the run's
+    checkpoint-best: their relative chamfer changes are printed, not held
+    to the gates' bound (30 steps do not make the gate's model)."""
+    import shutil
+    import tempfile
+
+    from spann3r_torch.ops import _kernels
+    from spann3r_torch.tools import bf16fast_gate, convergence, int8_gate
+    from spann3r_torch.tools import convergence_gate as cg
+
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="spann3r_gate_")
+    try:
+        args = cg.gate_args(GATE_RES, GATE_EPOCHS, GATE_B, GATE_STEPS, 3e-4,
+                            out, fp32=False, device="cuda",
+                            per_epoch_last=False)
+        _kernels.reset_launches()
+        art = convergence.run_gate(args, cg.small_cfg(GATE_RES),
+                                   cg.chamfer_expr(GATE_RES),
+                                   n_chamfer_scenes=3)
+        counts = _kernels.launch_counts()
+        b, a = art["before"], art["after"]
+        log(f"[gate] {GATE_EPOCHS} epochs x {GATE_STEPS} steps, B={GATE_B}, "
+            f"{GATE_RES}x{GATE_RES}, remat={int(art['remat'])}: eval loss_med "
+            f"{b['eval']['loss_med']:.4f} -> {a['eval']['loss_med']:.4f}; "
+            f"chamfer {b['chamfer']['chamfer']:.4f} -> "
+            f"{a['chamfer']['chamfer']:.4f} (acc {b['chamfer']['acc']:.4f} -> "
+            f"{a['chamfer']['acc']:.4f}, comp {b['chamfer']['comp']:.4f} -> "
+            f"{a['chamfer']['comp']:.4f}); {art['wall_s']:.1f} s on "
+            f"{art['device']}; launches {counts}")
+        if not art["eval_improved"]:
+            raise AssertionError("gate miniature: the eval loss did not fall")
+        if not all(counts[k] > 0 for k in ("rope2d", "sdpa", "memory_read",
+                                           "sdpa_bwd", "rope2d_bwd")):
+            raise AssertionError(f"gate miniature: a kernel was not launched: "
+                                 f"{counts}")
+        ckpt = os.path.join(out, "checkpoint-best.pth")
+        for label, mod, extra in (("int8", int8_gate, ["--act", "0"]),
+                                  ("int8 + act 256", int8_gate,
+                                   ["--act", "256"]),
+                                  ("BF16_FAST", bf16fast_gate, [])):
+            g = mod.run(mod.get_args_parser().parse_args(
+                ["--ckpt", ckpt, "--device", "cuda", *extra]))
+            arm = "bf16_fast" if mod is bf16fast_gate else "int8"
+            nq = (f", {g['quantized_matrices']} int8 matrices"
+                  if arm == "int8" else "")
+            log(f"[gate] {label} on checkpoint-best: chamfer "
+                f"{g['bf16']['chamfer']:.4f} (BF16) -> {g[arm]['chamfer']:.4f}"
+                f", relative change {g['chamfer_rel_delta']:+.4%}{nq} "
+                f"(reported, not gated); {g['wall_s']:.1f} s")
+            if g["ckpt"] != ckpt:
+                raise AssertionError(f"{label}: the checkpoint was not read")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"[gate] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1642,6 +1873,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_train(records, card)
+    phase_gate(card)
     phase_parity()
     phase_parity_train()
     print(json.dumps({"kernels": [records[k] for k in (

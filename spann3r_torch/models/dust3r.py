@@ -43,10 +43,12 @@ class DUSt3R(nn.Module):
 
 
 def encode_image(m: DUSt3R, img: torch.Tensor, cfg: DUSt3RConfig,
-                 prec: Precision = BF16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """img (B, H, W, 3) normalised NHWC -> tokens (B, N, D), pos (B, N, 2)."""
+                 prec: Precision = BF16, remat: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """img (B, H, W, 3) normalised NHWC -> tokens (B, N, D), pos (B, N, 2).
+    remat: recompute each block in the backward (training)."""
     x, pos = patch_embed_apply(m.patch_embed, img.to(prec.compute_dtype))
-    x = encoder_apply(m.enc_blocks, x, pos, cfg.enc)
+    x = encoder_apply(m.enc_blocks, x, pos, cfg.enc, remat)
     return layer_norm(m.enc_norm, x, cfg.enc.ln_eps), pos
 
 
@@ -70,16 +72,17 @@ def states_from_hooks(cfg: DUSt3RConfig, packed) -> list:
 
 def decoder(m: DUSt3R, f1: torch.Tensor, pos1: torch.Tensor,
             f2: torch.Tensor, pos2: torch.Tensor, cfg: DUSt3RConfig,
-            prec: Precision = BF16) -> Tuple[List, List]:
+            prec: Precision = BF16, remat: bool = False) -> Tuple[List, List]:
     """Dual cross-attending decoder. Returns two lists of 1 + depth states:
     the encoder features, then block outputs at the hook indices (None
-    elsewhere), the last one normed."""
+    elsewhere), the last one normed. remat: recompute each pair of blocks
+    in the backward (training)."""
     f1 = f1.to(prec.compute_dtype)
     f2 = f2.to(prec.compute_dtype)
     p1 = linear(m.decoder_embed, f1)
     p2 = linear(m.decoder_embed, f2)
     ys = dual_decoder_apply(m.dec_blocks, m.dec_blocks2, p1, p2, pos1, pos2,
-                            cfg.dec, head_hooks(cfg))
+                            cfg.dec, head_hooks(cfg), remat)
     out1: List = [f1] + [None] * cfg.dec.depth
     out2: List = [f2] + [None] * cfg.dec.depth
     for h, (y1, y2) in ys.items():

@@ -15,10 +15,12 @@ the same pair step, memory read and memory write.
 Training (`forward_train`) runs the JAX package's training memory
 semantics over a clip: one batched encoder pass, then per pair the
 training read (memory dropout), the pair step with both heads, and an
-unconditional append, all under autograd.
+unconditional append, all under autograd, with the JAX package's
+activation rematerialisation as an option.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,7 +32,8 @@ from ..ops.layers import gelu, init_conv_, init_modules_, layer_norm, linear
 from . import dust3r as d3
 from .memory import (MemoryState, add_mem, add_mem_check, init_memory,
                      memory_read, memory_read_train)
-from .vit import Block, PatchEmbed, encoder_apply, patch_embed_apply
+from .vit import (Block, PatchEmbed, encoder_apply, patch_embed_apply,
+                  rematerialised)
 
 
 def value_encoder_cfg(cfg: Spann3RConfig) -> ViTConfig:
@@ -102,15 +105,16 @@ def attn_head_apply(m: nn.Sequential, feat_enc: torch.Tensor,
 
 def encode_value(model: Spann3R, cfg: Spann3RConfig, res1_pts: torch.Tensor,
                  dec_last: torch.Tensor, pos: torch.Tensor,
-                 prec: Precision = BF16) -> torch.Tensor:
-    """Value tokens from the predicted reference pointmap."""
+                 prec: Precision = BF16, remat: bool = False) -> torch.Tensor:
+    """Value tokens from the predicted reference pointmap. remat: recompute
+    each value-encoder block in the backward (training)."""
     vcfg = value_encoder_cfg(cfg)
     if cfg.use_feat:
         x, pos_v = dec_last.to(prec.compute_dtype), pos
     else:
         x, pos_v = patch_embed_apply(model.pos_patch_embed,
                                      res1_pts.to(prec.compute_dtype))
-    x = encoder_apply(model.value_encoder, x, pos_v, vcfg)
+    x = encoder_apply(model.value_encoder, x, pos_v, vcfg, remat)
     x = layer_norm(model.value_norm, x, vcfg.ln_eps)
     return linear(model.value_out, x)
 
@@ -129,12 +133,15 @@ class PairOutputs(NamedTuple):
 def pair_step(model: Spann3R, cfg: Spann3RConfig, feat_fuse: torch.Tensor,
               feat1: torch.Tensor, feat2: torch.Tensor, pos: torch.Tensor,
               img_hw: Tuple[int, int], prec: Precision = BF16,
-              compute_res2: bool = True) -> PairOutputs:
+              compute_res2: bool = True, remat: bool = False) -> PairOutputs:
     """Decode one (reference, target) pair and build the memory features.
-    feat_fuse: memory-fused reference features (feat1 on the first pair)."""
+    feat_fuse: memory-fused reference features (feat1 on the first pair).
+    remat: recompute each decoder and value-encoder block in the backward
+    (training)."""
     dcfg = cfg.dust3r
     dm = model.dust3r
-    dec1, dec2 = d3.decoder(dm, feat_fuse, pos, feat2, pos, dcfg, prec)
+    dec1, dec2 = d3.decoder(dm, feat_fuse, pos, feat2, pos, dcfg, prec,
+                            remat)
     feat_k1 = attn_head_apply(model.attn_head_1, feat1, dec1[-1])
     feat_k2 = attn_head_apply(model.attn_head_2, feat2, dec2[-1])
     res1 = d3.downstream_head(dm, 1, dec1, img_hw, dcfg, prec)
@@ -143,7 +150,8 @@ def pair_step(model: Spann3R, cfg: Spann3RConfig, feat_fuse: torch.Tensor,
     else:
         res2 = None
         hooks2 = tuple([dec2[0]] + [dec2[h] for h in d3.head_hooks(dcfg)])
-    cur_v = encode_value(model, cfg, res1["pts3d"], dec1[-1], pos, prec)
+    cur_v = encode_value(model, cfg, res1["pts3d"], dec1[-1], pos, prec,
+                         remat)
     return PairOutputs(res1, res2, feat_k1, feat_k2, cur_v, hooks2)
 
 
@@ -162,7 +170,8 @@ def head2_from_hooks(model: Spann3R, cfg: Spann3RConfig,
 
 def forward_train(model: Spann3R, frames: torch.Tensor, cfg: Spann3RConfig,
                   prec: Precision = BF16,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  remat: bool = False, remat_scan: Optional[bool] = None
                   ) -> Dict[str, torch.Tensor]:
     """frames (B, T, H, W, 3) normalised -> the per-pair predictions stacked
     over time (JAX `forward_train`, spann3r_tpu/models/spann3r.py:174-256).
@@ -171,41 +180,72 @@ def forward_train(model: Spann3R, frames: torch.Tensor, cfg: Spann3RConfig,
     memory dropout at cfg.memory.mem_dropout when `generator` is given
     (drawn from it), and the raw reference features fused on the first
     pair (JAX reads the empty bank there and discards the result, so the
-    read is skipped). Differentiable; the activations are kept (JAX's
-    remat switches have no counterpart here).
+    read is skipped). Differentiable.
+
+    Activation rematerialisation, as the JAX package's `jax.checkpoint`
+    (`torch.utils.checkpoint`, non-reentrant): `remat` recomputes each
+    encoder block, each pair of decoder blocks and each value-encoder block
+    in the backward from its input; SPANN3R_NO_REMAT_ENC=1 keeps the
+    encoder's activations (it runs once, outside the pair loop). `remat_scan`
+    (default: SPANN3R_REMAT_SCAN set) also recomputes the whole per-pair
+    body (memory read, pair step, append), so that only the bank and the
+    pair's inputs stay resident between pairs. Each pair's dropout mask is
+    drawn before its body, in the order the reads draw it without remat, so
+    the recompute reads the mask the forward used and every setting gives
+    the same gradients. JAX's SPANN3R_UNROLL_TSCAN unrolls its `lax.scan`
+    for XLA's fusions; the loop here is a Python loop and has no such
+    switch.
 
     Returns {'pts3d_1', 'conf_1'} (reference frame t) and {'pts3d_2',
     'conf_2'} (target frame t + 1), each (T - 1, B, H, W[, 3]) fp32, all in
     frame 0's coordinates."""
+    if remat_scan is None:
+        remat_scan = bool(os.environ.get("SPANN3R_REMAT_SCAN"))
+    # without autograd there is no backward to recompute for
+    remat = remat and torch.is_grad_enabled()
+    remat_scan = remat_scan and torch.is_grad_enabled()
     b, t, h, w, _ = frames.shape
     dcfg = cfg.dust3r
     p_tokens = (h // dcfg.patch_size) * (w // dcfg.patch_size)
+    remat_enc = remat and not os.environ.get("SPANN3R_NO_REMAT_ENC")
     feats, pos = d3.encode_image(model.dust3r, frames.reshape(b * t, h, w, 3),
-                                 dcfg, prec)
+                                 dcfg, prec, remat_enc)
     feats = feats.reshape(b, t, p_tokens, -1).transpose(0, 1)   # (T,B,P,D)
     pos = pos[:b]
     mem = init_memory(b, (t - 1) * p_tokens, cfg.attn_head_out,
                       dtype=prec.compute_dtype, device=frames.device)
     rate = cfg.memory.mem_dropout if generator is not None else 0.0
-    ys: Dict[str, List[torch.Tensor]] = {
-        "pts3d_1": [], "conf_1": [], "pts3d_2": [], "conf_2": []}
-    feat_k2 = None
-    for i in range(t - 1):
-        feat1, feat2 = feats[i], feats[i + 1]
-        if i == 0:
+
+    def body(feat1, feat2, feat_k2, keep, *bank):
+        mem = MemoryState(*bank)
+        if feat_k2 is None:
             feat_fuse = feat1
         else:
             feat_fuse, mem = memory_read_train(model, mem, feat_k2,
                                                attn_thresh=0.0,
-                                               dropout_rate=rate,
-                                               generator=generator)
+                                               dropout_rate=rate, keep=keep)
         out = pair_step(model, cfg, feat_fuse, feat1, feat2, pos, (h, w),
-                        prec)
+                        prec, remat=remat)
         mem = add_mem(mem, out.feat_k1, out.cur_v + out.feat_k1)
-        feat_k2 = out.feat_k2
-        for j, res in ((1, out.res1), (2, out.res2)):
-            ys[f"pts3d_{j}"].append(res["pts3d"])
-            ys[f"conf_{j}"].append(res["conf"])
+        return (out.feat_k2, out.res1["pts3d"], out.res1["conf"],
+                out.res2["pts3d"], out.res2["conf"], *mem)
+
+    ys: Dict[str, List[torch.Tensor]] = {
+        "pts3d_1": [], "conf_1": [], "pts3d_2": [], "conf_2": []}
+    feat_k2 = None
+    for i in range(t - 1):
+        keep = None
+        if i > 0 and rate > 0.0:
+            # the read's (B, P, C) weights, each kept with 1 - rate
+            keep = torch.rand((b, p_tokens, mem.k.shape[1]),
+                              generator=generator,
+                              device=frames.device) < 1.0 - rate
+        args = (feats[i], feats[i + 1], feat_k2, keep, *mem)
+        outs = rematerialised(body, *args) if remat_scan else body(*args)
+        feat_k2, mem = outs[0], MemoryState(*outs[5:])
+        for key, y in zip(("pts3d_1", "conf_1", "pts3d_2", "conf_2"),
+                          outs[1:5]):
+            ys[key].append(y)
     return {key: torch.stack(v) for key, v in ys.items()}
 
 

@@ -4,14 +4,19 @@ Module attribute paths are the reference state-dict keys
 (`enc_blocks.{i}.attn.qkv`, `dec_blocks.{i}.cross_attn.projq`, ...). The
 block functions follow the JAX package's `models/vit.py`; its `lax.scan`
 over depth becomes a Python loop, and the dual decoder keeps only the hook
-states the heads read.
+states the heads read. `remat=True` (training only) checkpoints each block,
+or each pair of decoder blocks, as the JAX package's `jax.checkpoint` of the
+scan body does: the backward recomputes the block from its input.
 """
 from __future__ import annotations
+
+import functools
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ViTConfig
 from ..ops.attention import (CrossAttention, SelfAttention, cross_attention,
@@ -63,17 +68,36 @@ def decoder_block_apply(m: DecoderBlock, x: torch.Tensor, y: torch.Tensor,
     return x + mlp(m.mlp, layer_norm(m.norm3, x, cfg.ln_eps))
 
 
+def rematerialised(fn, *args):
+    """fn(*args), its activations recomputed in the backward instead of
+    kept (`torch.utils.checkpoint`, non-reentrant). Nothing inside draws
+    from the global RNG (memory dropout takes a mask drawn outside), so its
+    state is not saved."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def encoder_apply(blocks: Sequence[Block], x: torch.Tensor,
-                  pos: Optional[torch.Tensor], cfg: ViTConfig) -> torch.Tensor:
+                  pos: Optional[torch.Tensor], cfg: ViTConfig,
+                  remat: bool = False) -> torch.Tensor:
     for blk in blocks:
-        x = block_apply(blk, x, pos, cfg)
+        if remat:
+            x = rematerialised(functools.partial(block_apply, blk, cfg=cfg),
+                               x, pos)
+        else:
+            x = block_apply(blk, x, pos, cfg)
     return x
+
+
+def _decoder_pair(b1: DecoderBlock, b2: DecoderBlock, c1: torch.Tensor,
+                  c2: torch.Tensor, pos1, pos2, cfg: ViTConfig):
+    return (decoder_block_apply(b1, c1, c2, pos1, pos2, cfg),
+            decoder_block_apply(b2, c2, c1, pos2, pos1, cfg))
 
 
 def dual_decoder_apply(blocks1: Sequence[DecoderBlock],
                        blocks2: Sequence[DecoderBlock], f1: torch.Tensor,
                        f2: torch.Tensor, pos1, pos2, cfg: ViTConfig,
-                       hooks: Tuple[int, ...]
+                       hooks: Tuple[int, ...], remat: bool = False
                        ) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
     """Each block, the two streams attend to the other stream's previous
     output. Returns {block index (1-based): (y1, y2)} for the hook indices
@@ -81,8 +105,12 @@ def dual_decoder_apply(blocks1: Sequence[DecoderBlock],
     out = {}
     c1, c2 = f1, f2
     for i, (b1, b2) in enumerate(zip(blocks1, blocks2), start=1):
-        c1, c2 = (decoder_block_apply(b1, c1, c2, pos1, pos2, cfg),
-                  decoder_block_apply(b2, c2, c1, pos2, pos1, cfg))
+        if remat:
+            c1, c2 = rematerialised(
+                functools.partial(_decoder_pair, b1, b2, cfg=cfg),
+                c1, c2, pos1, pos2)
+        else:
+            c1, c2 = _decoder_pair(b1, b2, c1, c2, pos1, pos2, cfg)
         if i in hooks:
             out[i] = (c1, c2)
     return out

@@ -18,8 +18,9 @@ Schedules kept from the reference:
 Checkpoints are `.pth` files in the reference's layout {model, optimizer,
 scaler, args, epoch, best_so_far}: last, best and every keep_freq epochs,
 with auto-resume from last. One process on one device: the JAX package's
-tensor-parallel and FSDP layouts (--model_axis > 1, --fsdp 1) and its
-activation rematerialisation (--remat 1, --remat_scan 1) raise.
+tensor-parallel and FSDP layouts (--model_axis > 1, --fsdp 1) raise. Its
+activation rematerialisation is here (--remat 1, --remat_scan 1;
+`forward_train`), off by default: the card holds the activations.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ _MULTI_PROCESS = "multi-process training (DDP / FSDP2) is not ported yet: ROADMA
 
 def get_args_parser() -> argparse.ArgumentParser:
     """The flags of the JAX package's trainer (training.py:49-98), plus
-    --device. --remat defaults to 0: the port keeps the activations."""
+    --device. --remat defaults to 0: the card holds the activations."""
     p = argparse.ArgumentParser("Spann3R training (PyTorch port)",
                                 add_help=False)
     p.add_argument("--dust3r_ckpt", default=None,
@@ -99,9 +100,15 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="shard weights and moments (only 0: one process)")
     p.add_argument("--bf16", default=1, type=int)
     p.add_argument("--remat", default=0, type=int,
-                   help="only 0: the port keeps the activations")
+                   help="recompute each encoder, decoder and value-encoder "
+                        "block in the backward. Peak memory at 224, BF16, "
+                        "full width on an H100 80GB: 20.2 GiB with 0, 16.6 "
+                        "with 1 at B=2 x T=5; 39.4 and 24.2 GiB at B=4 x "
+                        "T=10 (PERF.md section 5)")
     p.add_argument("--remat_scan", default=0, type=int,
-                   help="only 0: the port keeps the activations")
+                   help="also recompute the whole per-pair body in the "
+                        "backward: 16.1 GiB at B=2 x T=5, 17.5 GiB at "
+                        "B=4 x T=10 (same setting)")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace of the first epoch")
     p.add_argument("--device", default="cuda", type=str,
@@ -268,23 +275,29 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 class _TrainLoss(nn.Module):
-    """The loss of one batch as a module, so that `functional_call` runs it
-    on the working copy of the weights."""
+    """The loss of one batch and its gradients as a module, so that
+    `functional_call` runs it on the working copy of the weights. The
+    backward runs inside the call too: a rematerialised block recomputes
+    its forward there, and must read the working copy again, not the
+    parameters the call swaps back in when it returns."""
 
     def __init__(self, model: nn.Module, cfg: Spann3RConfig, prec: Precision,
-                 fix_first: bool):
+                 fix_first: bool, remat: bool, remat_scan: Optional[bool]):
         super().__init__()
         self.model = model
         self.cfg, self.prec, self.fix_first = cfg, prec, fix_first
+        self.remat, self.remat_scan = remat, remat_scan
 
-    def forward(self, batch, generator, alpha):
+    def forward(self, batch, generator, alpha, wrt):
         frames = batch["img"].transpose(0, 1)            # (B,T,H,W,3)
         preds = sp.forward_train(self.model, frames, self.cfg, self.prec,
-                                 generator=generator)
+                                 generator=generator, remat=self.remat,
+                                 remat_scan=self.remat_scan)
         gts = {k: batch[k] for k in ("pts3d", "valid_mask", "camera_pose")}
         loss, details, factor_loss = losses.conf_loss_t(
             gts, preds, alpha=alpha, norm_mode=True, fix_first=self.fix_first)
-        return loss + factor_loss, details  # (ref training.py:217-218)
+        loss = loss + factor_loss  # (ref training.py:217-218)
+        return loss, details, torch.autograd.grad(loss, wrt, allow_unused=True)
 
 
 def _grads_bf16_default() -> bool:
@@ -293,21 +306,20 @@ def _grads_bf16_default() -> bool:
 
 def value_and_grad(model: nn.Module, cfg: Spann3RConfig, prec: Precision,
                    batch: Dict[str, torch.Tensor], generator, alpha: float,
-                   fix_first: bool = False, grads_bf16: bool = False):
+                   fix_first: bool = False, grads_bf16: bool = False,
+                   remat: bool = False, remat_scan: Optional[bool] = None):
     """(loss, details, {name: grad}) of one batch (tensors on the model's
     device, `batch_to_device`): conf_loss_t + the scale penalty of
-    `forward_train`, differentiated against the bf16 working copy under
-    grads_bf16, else against the parameters. Nothing is read to the
-    host."""
-    loss_mod = _TrainLoss(model, cfg, prec, fix_first)
+    `forward_train` (with its `remat` and `remat_scan`), differentiated
+    against the bf16 working copy under grads_bf16, else against the
+    parameters. Nothing is read to the host."""
+    loss_mod = _TrainLoss(model, cfg, prec, fix_first, remat, remat_scan)
     wp = work_params(model, prec) if grads_bf16 else dict(
         model.named_parameters())
     with torch.enable_grad():
-        loss, details = torch.func.functional_call(
+        loss, details, grads = torch.func.functional_call(
             loss_mod, {f"model.{n}": t for n, t in wp.items()},
-            (batch, generator, alpha), tie_weights=False)
-        grads = torch.autograd.grad(loss, list(wp.values()),
-                                    allow_unused=True)
+            (batch, generator, alpha, list(wp.values())), tie_weights=False)
     # a weight the loss never reads (the first DPT refinenet's unit for a
     # skip input it does not have) gets a zero gradient, as under jax.grad
     grads = {n: torch.zeros_like(t) if g is None else g
@@ -317,14 +329,15 @@ def value_and_grad(model: nn.Module, cfg: Spann3RConfig, prec: Precision,
 
 def make_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
                     fix_first: bool = False,
-                    grads_bf16: Optional[bool] = None):
+                    grads_bf16: Optional[bool] = None, remat: bool = False,
+                    remat_scan: Optional[bool] = None):
     """train_step(model, opt_state, batch, generator, lr, alpha) ->
     (opt_state, metrics): one optimizer step on `batch` (collated (T, B, ...)
     arrays or tensors), the model's parameters updated in place; `metrics`
     holds the loss, the grad norm and the loss details as device scalars.
     `generator` draws the memory dropout (None: off). `grads_bf16` (default:
     SPANN3R_GRADS_BF16) differentiates against the bf16 working copy
-    (`work_params`)."""
+    (`work_params`). `remat` and `remat_scan` are `forward_train`'s."""
     if grads_bf16 is None:
         grads_bf16 = _grads_bf16_default()
 
@@ -333,7 +346,7 @@ def make_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
         batch = batch_to_device(batch, next(model.parameters()).device)
         loss, details, grads = value_and_grad(model, cfg, prec, batch,
                                               generator, alpha, fix_first,
-                                              grads_bf16)
+                                              grads_bf16, remat, remat_scan)
         gnorm = global_norm_f32(grads.values())
         updates, opt_state = opt.update(grads, opt_state, params)
         apply_updates_(params, updates, lr)
@@ -344,24 +357,28 @@ def make_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
 
 def make_accum_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
                           accum_iter: int, fix_first: bool = False,
-                          grads_bf16: Optional[bool] = None):
+                          grads_bf16: Optional[bool] = None,
+                          remat: bool = False,
+                          remat_scan: Optional[bool] = None):
     """Gradient accumulation (ref training.py:226-231 accum_iter). Returns
     (train_step, None, None) for accum_iter <= 1, else (None, grad_step,
     apply_step): grad_step(model, grad_acc, batch, generator, alpha) ->
     (grad_acc, metrics) adds the batch's gradients / accum_iter to the fp32
     accumulator, or nothing when their norm is not finite;
     apply_step(model, opt_state, grad_acc, lr) -> (opt_state, zeroed
-    grad_acc, grad norm) runs the optimizer."""
+    grad_acc, grad norm) runs the optimizer. `remat` and `remat_scan` are
+    `forward_train`'s."""
     if grads_bf16 is None:
         grads_bf16 = _grads_bf16_default()
     if accum_iter <= 1:
-        return make_train_step(cfg, prec, opt, fix_first, grads_bf16), None, None
+        return make_train_step(cfg, prec, opt, fix_first, grads_bf16, remat,
+                               remat_scan), None, None
 
     def grad_step(model, grad_acc, batch, generator, alpha):
         batch = batch_to_device(batch, next(model.parameters()).device)
         loss, details, grads = value_and_grad(model, cfg, prec, batch,
                                               generator, alpha, fix_first,
-                                              grads_bf16)
+                                              grads_bf16, remat, remat_scan)
         ok = torch.isfinite(global_norm_f32(grads.values()))
         with torch.no_grad():
             grad_acc = {n: a + torch.where(ok, grads[n].to(a.dtype),
@@ -451,6 +468,14 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def precision_flag(name: str, bf16) -> bool:
+    """SPANN3R_ADAM_BF16 or SPANN3R_GRADS_BF16 as `train` reads it: "1" on,
+    any other value off, unset the bf16 training default (on under
+    --bf16 1)."""
+    v = os.environ.get(name)
+    return bool(bf16) if v is None else v == "1"
+
+
 def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
     """Run the training recipe in one process. `model_cfg` overrides the
     model architecture (the CLI trains the published ViT-L configuration
@@ -458,10 +483,6 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
     if args.model_axis > 1 or args.fsdp:
         raise NotImplementedError(f"--model_axis {args.model_axis} --fsdp "
                                   f"{args.fsdp}: {_MULTI_PROCESS}")
-    if args.remat or args.remat_scan:
-        raise NotImplementedError(
-            "--remat / --remat_scan: activation rematerialisation is not "
-            "ported (ROADMAP queue A); the port keeps the activations")
     device = _device(args.device)
     set_tf32_policy()
     os.makedirs(args.output_dir, exist_ok=True)
@@ -491,11 +512,8 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
             model.pos_patch_embed.load_state_dict(
                 model.dust3r.patch_embed.state_dict())
 
-    def _flag(name):
-        v = os.environ.get(name)
-        return bool(args.bf16) if v is None else v == "1"
-    adam_bf16 = _flag("SPANN3R_ADAM_BF16")
-    grads_bf16 = _flag("SPANN3R_GRADS_BF16")
+    adam_bf16 = precision_flag("SPANN3R_ADAM_BF16", args.bf16)
+    grads_bf16 = precision_flag("SPANN3R_GRADS_BF16", args.bf16)
     opt = make_optimizer(args.weight_decay,
                          moment_dtype=torch.bfloat16 if adam_bf16 else None)
 
@@ -523,7 +541,8 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
         args.lr = args.blr * eff_batch / 256
 
     train_step, grad_step, apply_step = make_accum_train_step(
-        cfg, prec, opt, args.accum_iter, grads_bf16=grads_bf16)
+        cfg, prec, opt, args.accum_iter, grads_bf16=grads_bf16,
+        remat=bool(args.remat), remat_scan=bool(args.remat_scan) or None)
     eval_step = make_eval_step(cfg, prec)
     grad_acc = zero_grads(model) if args.accum_iter > 1 else None
 

@@ -42,6 +42,9 @@ MODULES = [
     "spann3r_torch.models", "spann3r_torch.utils", "spann3r_torch.tools",
     "spann3r_torch.training", "spann3r_torch.train",
     "spann3r_torch.utils.metrics", "spann3r_torch.datasets.sampler",
+    "spann3r_torch.tools.convergence", "spann3r_torch.tools.convergence_gate",
+    "spann3r_torch.tools.int8_gate", "spann3r_torch.tools.bf16fast_gate",
+    "spann3r_torch.tools.readiness_drill", "spann3r_torch.tools.train_memory",
 ]
 
 

@@ -395,7 +395,8 @@ def test_train_cli_trains_saves_resumes_and_warm_starts(tmp_path, tiny_cli,
 
 
 @pytest.mark.parametrize("flags", [["--model_axis", "2"], ["--fsdp", "1"],
-                                   ["--remat", "1"], ["--remat_scan", "1"]])
+                                   ["--model_axis", "2", "--remat", "1"],
+                                   ["--fsdp", "1", "--remat_scan", "1"]])
 def test_train_refuses_what_is_not_ported(tmp_path, flags):
     args = TT.get_args_parser().parse_args(_cli_args(tmp_path, 1, flags))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
