@@ -73,6 +73,26 @@ Phases, each printing its results; any failure raises and exits non-zero:
                fall, every kernel launched; the chamfer before and after,
                and the int8, int8 + activations and BF16_FAST relative
                chamfer changes on its checkpoint-best (reported);
+  12. dist   - (run after phase 11) multi-process training: (a) in a
+               subprocess, world 1 over NCCL under torchrun's environment,
+               phase 10's configuration for DIST_STEPS steps with --fsdp 0
+               and --fsdp 1 between two one-process runs on the same
+               batches: the same bits (losses, grad norms, every weight)
+               and the launches of step 1 equal to train_launches, step
+               times beside the one-process runs' and phase 10's; then
+               `python -m torch.distributed.run --nproc_per_node 1 -m
+               spann3r_torch.train` for one step at the CLI's defaults;
+               (b) two ranks on the one card over gloo: each layout
+               (data 2, data 2 --fsdp 1, model 2) on the narrow FP32
+               configuration with uneven valid masks, B = 1 a rank:
+               the loss and the data-summed gradients against the
+               one-process step on the global batch within DIST_TOL
+               (DIST_TP_TOL under tensor parallelism), a
+               planted fault (gradients averaged) caught, step times (gloo
+               through the host: not NCCL's); (c) two full-width ranks at
+               224, B = 1 x T = 5 each, --fsdp 0 and 1: the state each
+               rank holds before a step against `state_bytes`, and its
+               peak memory;
   9. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
                offline: the card (kernels) against the CPU (plain
                versions), the same frame order, tolerance 1e-3; the
@@ -107,6 +127,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -1448,8 +1469,6 @@ def phase_train(records, card):
     then the gradients of the three remat settings on one batch with
     dropout on (remat_gradients)."""
     from spann3r_torch import config, training
-    from spann3r_torch.datasets import build_dataset, make_sampler
-    from spann3r_torch.datasets.loader import DataLoader
     from spann3r_torch.models import spann3r as sp
     from spann3r_torch.ops import _kernels
 
@@ -1458,16 +1477,7 @@ def phase_train(records, card):
                                                           head_type="dpt"))
     model = sp.build_spann3r(cfg, "cuda", torch.Generator().manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    ds = build_dataset(TRAIN_DATASET)
-    ds.set_epoch(0)
-    ds.set_ratio(1.0)
-    sampler = make_sampler(ds, TRAIN_B)
-    sampler.set_epoch(0)
-    batches = list(DataLoader(ds, TRAIN_B, sampler=sampler, num_workers=2))
-    if len(batches) < TRAIN_STEPS or batches[0]["img"].shape != (
-            TRAIN_T, TRAIN_B, *HW_224, 3):
-        raise AssertionError(f"train batches: {len(batches)} of shape "
-                             f"{batches[0]['img'].shape}")
+    batches = train_batches(TRAIN_STEPS)
     opt = training.make_optimizer(0.05, moment_dtype=torch.bfloat16)
     opt_state = opt.init(dict(model.named_parameters()))
     step = training.make_train_step(cfg, config.BF16, opt, grads_bf16=True)
@@ -1566,6 +1576,7 @@ def phase_train(records, card):
     del model
     torch.cuda.empty_cache()
     log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+    return by_setting["off"][0]
 
 
 def remat_gradients(model, cfg, batch):
@@ -1852,6 +1863,414 @@ def phase_parity_train():
         raise AssertionError("train-step parity: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-process training
+# ---------------------------------------------------------------------------
+
+# (a) world 1 over NCCL: steps of phase 10's configuration under each
+# --fsdp, from the same weights and dropout seed, against the one-process
+# step on the same batches; one-process runs before and after, to tell the
+# card's run-to-run rounding from a fault
+DIST_STEPS = 3
+# (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device): the narrow FP32 configuration of phase 9, B = 1 a rank, the
+# global batch's clips with uneven valid shares; each layout's loss and
+# gradients against the one-process step on the global batch: data
+# parallel runs the same operations but for the sums over the ranks and
+# the batch of each product, so 1e-5 of the largest |grad|; tensor
+# parallel also splits each row-parallel product's sum in two and sums the
+# input gradients of the two halves of the heads, which at FP32 moved
+# the gradients by 1.396e-5 to 1.430e-5 of the largest on an H100 (where
+# the card and the CPU differ by 1.3e-5 on this configuration, phase 9),
+# so about twice that: in float64 the split gives the one-process
+# gradients within 1e-12 (tests/test_torch_distributed.py), and a wrong
+# head or column moves them by O(1)
+DIST_KEEP = (0.9, 0.35)
+DIST_TOL = 1e-5
+DIST_TP_TOL = 3e-5
+# the layouts: (model axis, fsdp); their split and slice threshold takes
+# the encoder and value encoder (256 wide, 4 heads) and leaves the
+# decoders (192, 3 heads) whole
+GLOO_LAYOUTS = {"data 2": (1, False), "data 2 fsdp": (1, True),
+                "model 2": (2, False)}
+DIST_MIN_DIM = 256
+# (c) two full-width ranks at 224, B = 1 x T = 5 each, BF16 with bf16
+# gradients and moments: peak memory per rank under --fsdp 0 and 1
+MEM_STEPS = 2
+DIST_WORKER_TIMEOUT = 600
+
+
+def rank_part(batch, rank, n):
+    """A data rank's clips of a (T, B, ...) global batch: rows
+    [rank * B / n, (rank + 1) * B / n), as the trainer's sampler deals
+    them and forward_train cuts the dropout draw."""
+    b = batch["img"].shape[1] // n
+    return {k: v[:, rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+
+def uneven_batch(t, b, hw, keep, seed):
+    """A global FP32 batch whose clip i keeps keep[i] of its pixels."""
+    rng = np.random.default_rng(seed)
+    frames = make_frames(t * b, hw, seed=seed).reshape(t, b, *hw, 3)
+    mask = rng.random((t, b, *hw)) < np.asarray(keep)[None, :, None, None]
+    return {"img": frames.astype(np.float32) / 127.5 - 1.0,
+            "pts3d": (rng.standard_normal((t, b, *hw, 3)) + 2.0).astype(
+                np.float32),
+            "valid_mask": mask,
+            "camera_pose": np.broadcast_to(np.eye(4, dtype=np.float32),
+                                           (t, b, 4, 4)).copy()}
+
+
+def grads_agree(loss, grads, ref_loss, ref_grads, gmax, tol=DIST_TOL):
+    """(ok, loss relative error, worst gradient error / gmax): the loss
+    within tol relative and every gradient within tol of the largest
+    |grad| of the reference (`ref_grads` cut to the same parts)."""
+    dl = abs(loss - ref_loss) / max(abs(ref_loss), 1e-30)
+    worst = max(float((g.float() - ref_grads[k].float()).abs().max())
+                for k, g in grads.items())
+    return dl <= tol and worst <= tol * gmax, dl, worst / gmax
+
+
+def state_bytes(shapes, sliced, n, moment_bytes):
+    """Bytes of the training state one rank holds before a step: each
+    parameter's fp32 master and two moments, a sliced one as
+    ceil(numel / n) elements."""
+    total = 0
+    for name, shape in shapes.items():
+        numel = int(np.prod(shape))
+        if name in sliced:
+            numel = -(-numel // n)
+        total += numel * (4 + 2 * moment_bytes)
+    return total
+
+
+def _dist_env(rank, world, port, local_rank=None):
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK=str(rank if local_rank is None else local_rank),
+                MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(name, world, local_rank=None):
+    """This script's `--dist-worker name` as `world` ranks; their output
+    printed; fails unless every rank exits 0 within the timeout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", name],
+        cwd=here, env=_dist_env(r, world, port, local_rank),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("[dist]"):
+                log(line)
+        if p.returncode != 0:
+            raise AssertionError(f"[dist] {name} rank {r} failed (rc "
+                                 f"{p.returncode}):\n{out[-6000:]}")
+
+
+def phase_dist(card, train_ms):
+    """(a) world 1 over NCCL in a subprocess (`dist_world1`), then the
+    torchrun entry on a small SynthRoom set at the CLI's defaults; (b) and
+    (c) two ranks on the card over gloo (`dist_gloo2`)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[dist] phase 10's median step {train_ms:.1f} ms (one process, "
+        f"B={TRAIN_B} T={TRAIN_T} 224 BF16) on {card}")
+    _run_ranks("world1", 1)
+    t0 = time.perf_counter()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="spann3r_dist_") as out:
+        here = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "1", "--master_port", str(_free_port()),
+               "-m", "spann3r_torch.train", "--epochs", "1", "--save_freq",
+               "0", "--num_workers", "1", "--train_dataset",
+               "2 @ " + TRAIN_DATASET.replace("num_seq=16", "num_seq=2"),
+               "--output_dir", out]
+        # a process group of its own, so that a timeout stops torchrun's
+        # worker too
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out = proc.communicate(timeout=DIST_WORKER_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.communicate()
+        lines = out.splitlines()
+        if proc.returncode != 0 or not any(
+                x.startswith("E0 it0/1 loss=") for x in lines) or not any(
+                "process 0/1" in x for x in lines):
+            raise AssertionError("torchrun -m spann3r_torch.train failed:\n"
+                                 + "\n".join(lines[-60:]))
+        step = next(x for x in lines if x.startswith("E0 it0/1 loss="))
+    log(f"[dist] python -m torch.distributed.run --nproc_per_node 1 -m "
+        f"spann3r_torch.train (224 DPT BF16, B={TRAIN_B}, one step): "
+        f"'{step.strip()}' in {time.perf_counter() - t0:.1f} s")
+    _run_ranks("gloo2", 2, local_rank=0)
+    log(f"[dist] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _dist_steps(model, cfg, mesh, fsdp, batches):
+    """DIST_STEPS BF16 train steps from a copy of `model` (the trainer's
+    defaults: bf16 gradients and moments, dropout from SEED), under a
+    layout unless `fsdp` is None: losses, grad norms, step ms, the launches
+    of step 1 and the full weights after."""
+    import copy
+
+    from spann3r_torch import config, training
+    from spann3r_torch.ops import _kernels
+    from spann3r_torch.parallel import sharding
+
+    m = copy.deepcopy(model)
+    layout = None
+    if fsdp is not None:
+        layout = sharding.Layout(m, cfg, mesh, fsdp)
+        layout.shard_model_(m)
+    opt = training.make_optimizer(0.05, moment_dtype=torch.bfloat16)
+    st = opt.init(dict(m.named_parameters()))
+    step = training.make_train_step(cfg, config.BF16, opt, grads_bf16=True,
+                                    layout=layout)
+    gen = torch.Generator(device=next(m.parameters()).device).manual_seed(SEED)
+    losses, gnorms, walls = [], [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        if i == 0:
+            _kernels.reset_launches()
+        t0 = time.perf_counter()
+        st, mt = step(m, st, b, gen, TRAIN_LR, 0.4)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = _kernels.launch_counts()
+        losses.append(float(mt["loss"]))
+        gnorms.append(float(mt["grad_norm"]))
+    params = dict(m.named_parameters())
+    if layout is not None:
+        params = layout.full_tensors(params)
+    params = {k: v.detach().clone() for k, v in params.items()}
+    desc = "one process" if layout is None else layout.describe()
+    del m, st, step
+    torch.cuda.empty_cache()
+    return losses, gnorms, walls, counts, params, desc
+
+
+def dist_world1():
+    """(a): phase 10's configuration at world 1 over NCCL: one process,
+    --fsdp 0, --fsdp 1, one process again, on the same batches."""
+    import torch.distributed as dist
+
+    from spann3r_torch import config
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.parallel import mesh as pmesh
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    pmesh.init_distributed("cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"world 1 over NCCL: got {dist.get_backend()} "
+                             f"at {dist.get_world_size()}")
+    mesh = pmesh.make_mesh(1)
+    cfg = config.Spann3RConfig(dust3r=config.DUSt3RConfig(img_size=HW_224,
+                                                          head_type="dpt"))
+    model = sp.build_spann3r(cfg, "cuda", torch.Generator().manual_seed(SEED))
+    batches = train_batches(DIST_STEPS)
+    want = train_launches(cfg, TRAIN_T)
+    runs = {name: _dist_steps(model, cfg, mesh, fsdp, batches)
+            for name, fsdp in (("one process", None), ("fsdp 0", False),
+                               ("fsdp 1", True), ("one process again", None))}
+    ref = runs["one process"]
+
+    def diff(a, b):
+        return (max(abs(x - y) for x, y in zip(a[0], b[0])),
+                max(float((a[4][k] - b[4][k]).abs().max()) for k in a[4]))
+
+    same_ref = diff(ref, runs["one process again"]) == (0.0, 0.0)
+    for name, (losses, gnorms, walls, counts, params, desc) in runs.items():
+        bits = (losses == ref[0] and gnorms == ref[1] and all(
+            torch.equal(params[k], ref[4][k]) for k in ref[4]))
+        dl, dp = diff(runs[name], ref)
+        print(f"[dist] world 1 NCCL {name} ({desc}): loss {losses}, grad norm "
+              f"{gnorms}; step ms {[round(x, 1) for x in walls]}; launches "
+              f"of step 1 {counts} (expected {want}); against the first "
+              f"one-process run: {'the same bits' if bits else 'differs'}"
+              f" (loss {dl:.3e}, weights {dp:.3e})", flush=True)
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        if same_ref and not bits:
+            raise AssertionError(f"world 1 {name}: not the one-process bits")
+    if not same_ref:
+        raise AssertionError("two one-process runs on the card differ: the "
+                             "bit check cannot be made")
+    dist.destroy_process_group()
+
+
+def dist_gloo2():
+    """(b) and (c): two ranks on the one card over gloo."""
+    import torch.distributed as dist
+
+    from spann3r_torch.parallel import mesh as pmesh
+
+    dev = pmesh.init_distributed("cuda", backend="gloo")
+    if dist.get_rank() == 0:
+        log(f"[dist] two ranks over gloo on CUDA tensors, torch "
+            f"{torch.__version__}")
+    _gloo_layouts(dev)
+    _gloo_memory(dev)
+    dist.destroy_process_group()
+
+
+def _gloo_layouts(dev):
+    """(b): each layout on the narrow FP32 configuration against the
+    one-process step on the global batch."""
+    import torch.distributed as dist
+
+    from spann3r_torch import config, training
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.parallel import mesh as pmesh
+    from spann3r_torch.parallel import sharding
+
+    rank = dist.get_rank()
+    cfg = parity_train_cfg()
+    batch = uneven_batch(PARITY_TRAIN_T, 2, HW_224, DIST_KEEP, SEED + 40)
+    model = sp.build_spann3r(cfg, dev, torch.Generator().manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss, _, ref = training.value_and_grad(
+        model, cfg, config.FP32, training.batch_to_device(batch, dev), None,
+        0.4)
+    ref_loss, gmax = float(loss), max(float(g.abs().max())
+                                      for g in ref.values())
+    for name, (model_axis, fsdp) in GLOO_LAYOUTS.items():
+        mesh = pmesh.make_mesh(model_axis)
+        m = sp.build_spann3r(cfg, dev)
+        m.load_state_dict(init)
+        layout = sharding.Layout(m, cfg, mesh, fsdp, DIST_MIN_DIM)
+        layout.shard_model_(m)
+        local = rank_part(batch, mesh.data_rank, mesh.data)
+        l, _, g = training.value_and_grad(
+            m, cfg, config.FP32, training.batch_to_device(local, dev), None,
+            0.4, layout=layout)
+        g = layout.reduce_grads(g)
+        want = layout.shard_tensors(ref)
+        tol = DIST_TP_TOL if model_axis > 1 else DIST_TOL
+        ok, dl, dg = grads_agree(float(l), g, ref_loss, want, gmax, tol)
+        fault = ""
+        if mesh.data > 1:
+            avg = {k: v / mesh.data for k, v in g.items()}
+            caught = not grads_agree(float(l), avg, ref_loss, want, gmax,
+                                     tol)[0]
+            fault = (f"; planted fault (gradients averaged over the data "
+                     f"group): {'caught' if caught else 'NOT caught'}")
+            ok = ok and caught
+        opt = training.make_optimizer(0.05)
+        st = opt.init(dict(m.named_parameters()))
+        step = training.make_train_step(cfg, config.FP32, opt,
+                                        grads_bf16=False, layout=layout)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = step(m, st, local, None, 1e-4, 0.4)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"[dist] gloo {name} rank {rank} ({layout.describe()}): loss "
+              f"rel err {dl:.3e}, grads max err {dg:.3e} of max |grad| "
+              f"{gmax:.3e} (bound {tol:g}) {'ok' if ok else 'FAILED'}"
+              f"{fault}; FP32 step ms {[round(x, 1) for x in walls]} "
+              f"(host-bound gloo, not NCCL)", flush=True)
+        if not ok:
+            raise AssertionError(f"gloo {name}: the step disagrees with the "
+                                 f"one-process step on the global batch")
+        del m, st, step, layout
+        torch.cuda.empty_cache()
+
+
+def _gloo_memory(dev):
+    """(c): the state and peak memory of two full-width ranks, --fsdp 0
+    and 1."""
+    import torch.distributed as dist
+
+    from spann3r_torch import config, training
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.parallel import mesh as pmesh
+    from spann3r_torch.parallel import sharding
+
+    rank = dist.get_rank()
+    full = config.Spann3RConfig(dust3r=config.DUSt3RConfig(img_size=HW_224,
+                                                           head_type="dpt"))
+    batch = [rank_part(b, rank, 2) for b in train_batches(MEM_STEPS, 2)]
+    mesh = pmesh.make_mesh(1)
+    for fsdp in (False, True):
+        m = sp.build_spann3r(full, dev, torch.Generator().manual_seed(SEED))
+        layout = sharding.Layout(m, full, mesh, fsdp)
+        layout.shard_model_(m)
+        opt = training.make_optimizer(0.05, moment_dtype=torch.bfloat16)
+        st = opt.init(dict(m.named_parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        predicted = state_bytes(layout.shapes, set(layout.fsdp), 2, 2)
+        step = training.make_train_step(full, config.BF16, opt,
+                                        grads_bf16=True, layout=layout)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        walls = []
+        for b in batch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, mt = step(m, st, b, gen, TRAIN_LR, 0.4)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(mt["loss"])):
+            raise AssertionError("full width over gloo: loss not finite")
+        print(f"[dist] full width 224 BF16 B=1 x T={TRAIN_T} a rank, "
+              f"--fsdp {int(fsdp)}, rank {rank} ({layout.describe()}): state "
+              f"held before the step {held / 2**30:.3f} GiB (predicted "
+              f"master + moments {predicted / 2**30:.3f} GiB); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+              f"(max_memory_allocated); step ms "
+              f"{[round(x, 1) for x in walls]} (host-bound gloo)", flush=True)
+        del m, st, step, layout
+        torch.cuda.empty_cache()
+
+
+def train_batches(n, b=TRAIN_B):
+    """n batches of b SynthRoom clips of TRAIN_T frames at 224 through the
+    trainer's dataset, sampler and loader (phase 10's)."""
+    from spann3r_torch.datasets import build_dataset, make_sampler
+    from spann3r_torch.datasets.loader import DataLoader
+
+    ds = build_dataset(TRAIN_DATASET)
+    ds.set_epoch(0)
+    ds.set_ratio(1.0)
+    sampler = make_sampler(ds, b)
+    sampler.set_epoch(0)
+    batches = list(DataLoader(ds, b, sampler=sampler, num_workers=2))[:n]
+    if len(batches) < n or batches[0]["img"].shape != (TRAIN_T, b, *HW_224,
+                                                       3):
+        raise AssertionError(f"train batches: {len(batches)} of shape "
+                             f"{batches[0]['img'].shape}")
+    return batches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1859,7 +2278,14 @@ def main():
                          "and write the summary to FILE, and one more "
                          "offline run to FILE with _offline before its "
                          "extension")
+    ap.add_argument("--dist-worker", choices=("world1", "gloo2"),
+                    help=argparse.SUPPRESS)   # one rank of phase 12
     args = ap.parse_args()
+    if args.dist_worker:
+        from spann3r_torch.config import set_tf32_policy
+        set_tf32_policy()
+        {"world1": dist_world1, "gloo2": dist_gloo2}[args.dist_worker]()
+        return
     card = phase_card()
     phase_build()
     records = {}
@@ -1872,8 +2298,9 @@ def main():
     phase_entry(cfg, model, card)
     del model
     torch.cuda.empty_cache()
-    phase_train(records, card)
+    train_ms = phase_train(records, card)
     phase_gate(card)
+    phase_dist(card, train_ms)
     phase_parity()
     phase_parity_train()
     print(json.dumps({"kernels": [records[k] for k in (

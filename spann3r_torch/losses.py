@@ -5,6 +5,16 @@ alignment criterion (`regr3d_t_scale_shift_inv`). The pair losses and
 `find_opt_scaling` of the JAX package (pretraining, global alignment) are
 not ported yet.
 
+Over several processes (`group`: the data group of parallel/mesh.py)
+each rank holds its part of the batch, and the criterion's batch-wide
+statistics are taken over the whole batch, as the JAX package takes them
+on its global batch: the batch-total valid count of the normalisation,
+each frame's masked sums and counts, and the scale-overshoot sum and
+count are summed over the group (`all_reduce_sum`), so that every rank
+holds the loss of the whole batch and its backward yields the derivative
+through its own samples only; the trainer then sums the gradients over
+the group. `group=None` is the one-process criterion.
+
 Pure functions over stacked tensors:
   gts:   {'pts3d': (T,B,H,W,3) world frame, 'valid_mask': (T,B,H,W) bool,
           'camera_pose': (T,B,4,4) cam2world}
@@ -17,8 +27,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .parallel.mesh import all_reduce_sum
 from .utils.geometry import geotrf, inv_se3
-from .utils.masked import masked_mean, masked_median
+from .utils.masked import masked_median, sum_ratio
 
 
 def l21(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -30,9 +41,19 @@ def l21(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 # normalization (ref spann3r/loss.py:22-84)
 # ---------------------------------------------------------------------------
 
-def _avg_dis_factor(pts_list, valid_list, fix_first: bool) -> torch.Tensor:
+def _group_sums(vals, group):
+    """`vals` (scalars) summed over the group, in one collective; `vals`
+    as they are without a group."""
+    if group is None:
+        return list(vals)
+    return list(all_reduce_sum(torch.stack(list(vals)), group).unbind(0))
+
+
+def _avg_dis_factor(pts_list, valid_list, fix_first: bool,
+                    group=None) -> torch.Tensor:
     """norm_factor (B,): per-sample distance sum / batch-total valid count
-    (the reference's quirk: the count sums over the whole batch)."""
+    (the reference's quirk: the count sums over the whole batch, over the
+    group's ranks too)."""
     n_use = 1 if fix_first else len(pts_list)
     num = 0.0
     den = 0.0
@@ -41,23 +62,25 @@ def _avg_dis_factor(pts_list, valid_list, fix_first: bool) -> torch.Tensor:
         m = valid.to(dis.dtype)
         num = num + (dis * m).sum(dim=(-2, -1))             # (B,)
         den = den + m.sum()                                 # scalar
+    if group is not None:
+        den = all_reduce_sum(den, group)
     factor = num / (den + 1e-8)
     return factor.clamp(min=1e-8)
 
 
-def normalize_pointcloud_t(pts_l, pts_r, valids, fix_first: bool
+def normalize_pointcloud_t(pts_l, pts_r, valids, fix_first: bool, group=None
                            ) -> Tuple[list, list, torch.Tensor]:
     """Joint normalization of predictions: factor from pts_l (+ last
     pts_r)."""
     factor = _avg_dis_factor(list(pts_l) + [pts_r[-1]], list(valids),
-                             fix_first)
+                             fix_first, group)
     f = factor[:, None, None, None]
     return [p / f for p in pts_l], [p / f for p in pts_r], factor
 
 
-def normalize_gt_t(gt_pts, valids, fix_first: bool
+def normalize_gt_t(gt_pts, valids, fix_first: bool, group=None
                    ) -> Tuple[list, torch.Tensor]:
-    factor = _avg_dis_factor(list(gt_pts), list(valids), fix_first)
+    factor = _avg_dis_factor(list(gt_pts), list(valids), fix_first, group)
     f = factor[:, None, None, None]
     return [p / f for p in gt_pts], factor
 
@@ -91,7 +114,8 @@ def _joint_center_scale(pts_list, valid_list) -> torch.Tensor:
 def get_all_pts3d_t(gts: Dict, preds: Dict, norm_mode: bool = True,
                     gt_scale: bool = False, fix_first: bool = False,
                     dist_clip: Optional[float] = None,
-                    shift_inv: bool = False, scale_inv: bool = False):
+                    shift_inv: bool = False, scale_inv: bool = False,
+                    group=None):
     """Transform the GT into camera 0's frame, collect the prediction lists,
     normalize (ref spann3r/loss.py:129-247).
 
@@ -100,7 +124,8 @@ def get_all_pts3d_t(gts: Dict, preds: Dict, norm_mode: bool = True,
     carry no gradient, like the reference's @torch.no_grad() helpers
     (loss.py:87, 106); monitoring holds their PRE-subtraction values (the
     reference exposes them, spann3r/loss.py:321,362 — eval re-anchors with
-    them)."""
+    them). `group`: the normalisation's valid count over the data group
+    (the shift and scale statistics are per sample)."""
     monitoring = {}
     t = gts["pts3d"].shape[0]
     in_cam1 = inv_se3(gts["camera_pose"][0])  # (B,4,4)
@@ -115,9 +140,10 @@ def get_all_pts3d_t(gts: Dict, preds: Dict, norm_mode: bool = True,
     gt_factor = pr_factor = None
     if norm_mode:
         pr_l, pr_r, pr_factor = normalize_pointcloud_t(pr_l, pr_r, valids,
-                                                       fix_first)
+                                                       fix_first, group)
         if not gt_scale:
-            gt_pts, gt_factor = normalize_gt_t(gt_pts, valids, fix_first)
+            gt_pts, gt_factor = normalize_gt_t(gt_pts, valids, fix_first,
+                                               group)
 
     if shift_inv:
         # subtract the joint masked median depth (ref loss.py:294-322)
@@ -168,13 +194,14 @@ def regr3d_t_scale_shift_inv(gts: Dict, preds: Dict):
     return gt_pts, pr_l, pr_r, valids, monitoring
 
 
-def regr3d_t_frame_losses(gts: Dict, preds: Dict, **kw):
+def regr3d_t_frame_losses(gts: Dict, preds: Dict, group=None, **kw):
     """Per-frame L21 losses on both branches (ref loss.py:184-247).
+    `group`: the batch-wide statistics over the data group.
 
     Returns (losses list of (T-1)*2 per-pixel maps, masks, confs,
     factor_loss, details)."""
     gt_pts, pr_l, pr_r, gt_factor, pr_factor, valids, _ = \
-        get_all_pts3d_t(gts, preds, **kw)
+        get_all_pts3d_t(gts, preds, group=group, **kw)
     t = len(gt_pts)
     losses, masks, confs = [], [], []
     for i in range(t):
@@ -191,30 +218,44 @@ def regr3d_t_frame_losses(gts: Dict, preds: Dict, **kw):
     if pr_factor is not None and gt_factor is not None:
         over = (pr_factor > gt_factor).to(pr_factor.dtype)
         diff = (pr_factor - gt_factor).abs()
-        factor_loss = (diff * over).sum() / over.sum().clamp(min=1)
+        num, den = _group_sums([(diff * over).sum(), over.sum()], group)
+        factor_loss = num / den.clamp(min=1)
     else:
         factor_loss = torch.zeros((), device=gts["pts3d"].device)
 
-    details = {"loss_pts3d_1": masked_mean(losses[0], masks[0]),
-               "loss_pts3d_2": masked_mean(losses[1], masks[1])}
+    sums = []
+    for loss, mask in zip(losses[:2], masks[:2]):
+        m = mask.to(loss.dtype)
+        sums += [(loss * m).sum(), m.sum()]
+    s1, n1, s2, n2 = _group_sums(sums, group)
+    details = {"loss_pts3d_1": sum_ratio(s1, n1),
+               "loss_pts3d_2": sum_ratio(s2, n2)}
     return losses, masks, confs, factor_loss, details
 
 
-def conf_loss_t(gts: Dict, preds: Dict, alpha: float = 0.4, **kw):
+def conf_loss_t(gts: Dict, preds: Dict, alpha: float = 0.4, group=None,
+                **kw):
     """Confidence-weighted sequence loss (ref spann3r/loss.py:250-291).
+    `group`: each frame's masked means over the data group's whole batch.
 
     Returns (scalar loss, details, factor_loss)."""
     losses, masks, confs, factor_loss, details = regr3d_t_frame_losses(
-        gts, preds, **kw)
+        gts, preds, group=group, **kw)
+    sums = []
+    for loss, mask, conf in zip(losses, masks, confs):
+        m = mask.to(loss.dtype)
+        x = loss * conf - alpha * torch.log(conf)
+        sums += [(x * m).sum(), m.sum(), (conf * mask.to(conf.dtype)).sum()]
+    sums = _group_sums(sums, group)
     conf_losses = []
     conf_sum = 0.0
-    for loss, mask, conf in zip(losses, masks, confs):
-        cl = masked_mean(loss * conf - alpha * torch.log(conf), mask)
+    for i in range(len(losses)):
+        num, den, conf_num = sums[3 * i:3 * i + 3]
         # a frame with no valid pixel contributes 0, not NaN (ref
         # loss.py:284); conf_mean is left unguarded like the reference's
-        cl = torch.where(mask.any(), cl, torch.zeros_like(cl))
-        conf_losses.append(cl)
-        conf_sum = conf_sum + masked_mean(conf, mask)
+        cl = sum_ratio(num, den)
+        conf_losses.append(torch.where(den > 0, cl, torch.zeros_like(cl)))
+        conf_sum = conf_sum + sum_ratio(conf_num, den)
     conf_losses = torch.stack(conf_losses) * 2.0
     loss = conf_losses.mean()
     details = dict(details, conf_loss_1=conf_losses[0],

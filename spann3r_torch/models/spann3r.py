@@ -171,7 +171,8 @@ def head2_from_hooks(model: Spann3R, cfg: Spann3RConfig,
 def forward_train(model: Spann3R, frames: torch.Tensor, cfg: Spann3RConfig,
                   prec: Precision = BF16,
                   generator: Optional[torch.Generator] = None,
-                  remat: bool = False, remat_scan: Optional[bool] = None
+                  remat: bool = False, remat_scan: Optional[bool] = None,
+                  data_shard: Tuple[int, int] = (0, 1)
                   ) -> Dict[str, torch.Tensor]:
     """frames (B, T, H, W, 3) normalised -> the per-pair predictions stacked
     over time (JAX `forward_train`, spann3r_tpu/models/spann3r.py:174-256).
@@ -192,9 +193,14 @@ def forward_train(model: Spann3R, frames: torch.Tensor, cfg: Spann3RConfig,
     pair's inputs stay resident between pairs. Each pair's dropout mask is
     drawn before its body, in the order the reads draw it without remat, so
     the recompute reads the mask the forward used and every setting gives
-    the same gradients. JAX's SPANN3R_UNROLL_TSCAN unrolls its `lax.scan`
-    for XLA's fusions; the loop here is a Python loop and has no such
-    switch.
+    the same gradients. Over several processes `data_shard` = (data rank,
+    data world): `frames` are that rank's part of a batch of B * world
+    clips, and each mask is drawn for the whole batch from the generator
+    (seeded alike on every rank) and cut to the rank's rows, so that the
+    ranks draw what one process draws on the whole batch, and the model
+    ranks of one data rank draw the same. JAX's SPANN3R_UNROLL_TSCAN
+    unrolls its `lax.scan` for XLA's fusions; the loop here is a Python
+    loop and has no such switch.
 
     Returns {'pts3d_1', 'conf_1'} (reference frame t) and {'pts3d_2',
     'conf_2'} (target frame t + 1), each (T - 1, B, H, W[, 3]) fp32, all in
@@ -237,9 +243,10 @@ def forward_train(model: Spann3R, frames: torch.Tensor, cfg: Spann3RConfig,
         keep = None
         if i > 0 and rate > 0.0:
             # the read's (B, P, C) weights, each kept with 1 - rate
-            keep = torch.rand((b, p_tokens, mem.k.shape[1]),
-                              generator=generator,
-                              device=frames.device) < 1.0 - rate
+            rank, world = data_shard
+            draw = torch.rand((b * world, p_tokens, mem.k.shape[1]),
+                              generator=generator, device=frames.device)
+            keep = draw[rank * b:(rank + 1) * b] < 1.0 - rate
         args = (feats[i], feats[i + 1], feat_k2, keep, *mem)
         outs = rematerialised(body, *args) if remat_scan else body(*args)
         feat_k2, mem = outs[0], MemoryState(*outs[5:])

@@ -170,9 +170,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise NotImplementedError(f"sdpa on {q.device}")
 
 
-def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     b, n, c = x.shape
-    return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
+    return x.reshape(b, n, c // head_dim, head_dim).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -203,10 +203,13 @@ class CrossAttention(nn.Module):
 def self_attention(m: SelfAttention, x: torch.Tensor,
                    pos: Optional[torch.Tensor], num_heads: int,
                    rope_base: float = 100.0) -> torch.Tensor:
-    """x (B, N, C); RoPE on q and k when pos is given and rope_base > 0."""
+    """x (B, N, C); RoPE on q and k when pos is given and rope_base > 0.
+    The heads are counted from `qkv`'s output: under tensor parallelism
+    (parallel/sharding.py) it holds this rank's heads only."""
     b, n, c = x.shape
     head_dim = c // num_heads
-    qkv = linear(m.qkv, x).reshape(b, n, 3, num_heads, head_dim)
+    qkv = linear(m.qkv, x)
+    qkv = qkv.reshape(b, n, 3, qkv.shape[-1] // (3 * head_dim), head_dim)
     qkv = qkv.permute(2, 0, 3, 1, 4)  # (3, B, H, N, Dh) view
     q, k, v = qkv[0], qkv[1], qkv[2]
     if pos is not None and rope_base > 0:
@@ -219,11 +222,13 @@ def cross_attention(m: CrossAttention, query: torch.Tensor, key: torch.Tensor,
                     value: torch.Tensor, qpos: Optional[torch.Tensor],
                     kpos: Optional[torch.Tensor], num_heads: int,
                     rope_base: float = 100.0) -> torch.Tensor:
+    """query (B, N, C) attends to key and value (B, M, C); the heads are
+    counted from the projections' output, as in `self_attention`."""
     c = query.shape[-1]
     head_dim = c // num_heads
-    q = _split_heads(linear(m.projq, query), num_heads)
-    k = _split_heads(linear(m.projk, key), num_heads)
-    v = _split_heads(linear(m.projv, value), num_heads)
+    q = _split_heads(linear(m.projq, query), head_dim)
+    k = _split_heads(linear(m.projk, key), head_dim)
+    v = _split_heads(linear(m.projv, value), head_dim)
     if rope_base > 0:
         if qpos is not None and kpos is not None:
             q, k = rope_2d_qk(q, k, qpos, kpos, rope_base)

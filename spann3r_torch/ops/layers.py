@@ -64,7 +64,12 @@ def _int8_act_linear(m: QuantLinear, x: torch.Tensor) -> torch.Tensor:
 
 def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """x @ W^T + b in x's dtype, for an `nn.Linear` or a `QuantLinear`
-    (weight-only: the weight dequantised in x's dtype as q * scale)."""
+    (weight-only: the weight dequantised in x's dtype as q * scale). A
+    linear split by tensor parallelism carries its own forward
+    (`tp_split`, set by parallel/sharding.py)."""
+    split = getattr(m, "tp_split", None)
+    if split is not None:
+        return split(m, x)
     if isinstance(m, QuantLinear):
         if m.act_min_rows and x.numel() // x.shape[-1] >= m.act_min_rows:
             return _int8_act_linear(m, x)

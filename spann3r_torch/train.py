@@ -4,8 +4,13 @@
         [--test_dataset ...] [--output_dir ...] [--device cpu]
 
 The flags are those of the JAX package's train.py, plus --device (default
-cuda; raises without a card). One process: --model_axis > 1 and --fsdp 1
-raise (multi-process training is not ported yet).
+cuda; raises without a card). On N cards of one host, one process each:
+
+    python -m torch.distributed.run --nproc_per_node N -m spann3r_torch.train \
+        --train_dataset ... [--model_axis M] [--fsdp 1]
+
+(NCCL; with --device cpu, gloo on the CPU). --batch_size is per data rank;
+--model_axis M splits each large block over M ranks and must divide N.
 """
 from .training import get_args_parser, train
 

@@ -1,4 +1,4 @@
-"""Training loop of the port (the JAX package's training.py, single process).
+"""Training loop of the port (the JAX package's training.py).
 
 One train step: `forward_train` over a clip -> `conf_loss_t` + the scale
 penalty -> gradients -> AdamW(0.9, 0.95) with decay on tensors of two or
@@ -16,15 +16,30 @@ Schedules kept from the reference:
   - alpha coarse-to-fine: ConfLoss alpha 0.4 -> 0.2 linearly over the
     second half (training.py:410-412)
 Checkpoints are `.pth` files in the reference's layout {model, optimizer,
-scaler, args, epoch, best_so_far}: last, best and every keep_freq epochs,
-with auto-resume from last. One process on one device: the JAX package's
-tensor-parallel and FSDP layouts (--model_axis > 1, --fsdp 1) raise. Its
+scaler, args, epoch, best_so_far}, holding the full tensors: last, best
+and every keep_freq epochs, with auto-resume from last. The JAX package's
 activation rematerialisation is here (--remat 1, --remat_scan 1;
 `forward_train`), off by default: the card holds the activations.
+
+One process, or several under torchrun (`parallel/mesh.py`), each on its
+card: the ranks form a data x model mesh (--model_axis M). The data ranks
+read different clips (the sampler takes the data rank), and the step is
+the JAX package's step on their concatenated batch: the loss's batch-wide
+statistics are taken over the data group (`losses`), the memory dropout
+is drawn for the whole batch (`forward_train`), and the gradients are
+summed over the data group before the norm, the clip and the non-finite
+gate, which so decide alike on every rank. --fsdp 1 keeps the large
+weights' master copy and moments as flat slices over the data group, and
+--model_axis M splits the blocks over the model group
+(`parallel/sharding.py`). The eval walks each data rank's strided part of
+the set and merges the statistics; only rank 0 writes (log, TensorBoard,
+sources, PLYs, checkpoints), after every rank has gathered the full
+tensors.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -33,9 +48,13 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from . import losses
+from .parallel.mesh import Mesh, comm_device, gather_numpy, init_distributed, \
+    make_mesh
+from .parallel.sharding import Layout
 from .config import (BF16, FP32, DUSt3RConfig, Precision, Spann3RConfig,
                      set_tf32_policy)
 from .datasets import build_dataset, make_sampler
@@ -48,9 +67,6 @@ from .utils.convert import (load_dust3r_checkpoint, load_spann3r_checkpoint,
 # non-finite-gradient gate suppressed while the loss stayed finite (see
 # make_optimizer); otherwise such a run would freeze silently.
 MAX_SUPPRESSED_STEPS = int(os.environ.get("SPANN3R_MAX_SUPPRESSED_STEPS", 25))
-
-# multi-process training is ROADMAP queue A item 3
-_MULTI_PROCESS = "multi-process training (DDP / FSDP2) is not ported yet: ROADMAP queue A item 3"
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +91,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_dataset", default=None, type=str)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--batch_size", default=2, type=int,
-                   help="per-process batch size")
+                   help="per-process batch size (per data rank)")
     p.add_argument("--batch_size_test", default=1, type=int)
     p.add_argument("--accum_iter", default=1, type=int)
     p.add_argument("--epochs", default=120, type=int)
@@ -92,12 +108,15 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--print_freq", default=20, type=int)
     p.add_argument("--output_dir", default="./output/train", type=str)
     p.add_argument("--model_axis", default=1, type=int,
-                   help="tensor-parallel axis size (only 1: one process)")
+                   help="tensor-parallel size: the ranks that split each "
+                        "block (it must divide the world size)")
     p.add_argument("--tp_min_dim", default=1024, type=int,
-                   help="smallest weight last-dim sharded over 'model' "
-                        "(unused at --model_axis 1)")
+                   help="smallest block width split over 'model', and "
+                        "smallest input dim of a weight sliced by --fsdp")
     p.add_argument("--fsdp", default=0, type=int,
-                   help="shard weights and moments (only 0: one process)")
+                   help="keep the large weights' fp32 master and Adam "
+                        "moments as slices over the data ranks "
+                        "(parallel/sharding.py)")
     p.add_argument("--bf16", default=1, type=int)
     p.add_argument("--remat", default=0, type=int,
                    help="recompute each encoder, decoder and value-encoder "
@@ -192,7 +211,10 @@ def make_optimizer(weight_decay: float,
     parameter's dtype. `moment_dtype` (bf16 for bf16 training) stores the
     moments. Non-finite gate: when the global gradient norm is inf or nan,
     every update is zero and the moments and the count stay as they were,
-    decided on the device with no host read."""
+    decided on the device with no host read. Over several processes the
+    step passes `gnorm`, the norm of the whole gradient, and `shapes`, the
+    full shapes of the parameters this rank holds in part (the decay rule
+    reads them)."""
     b1, b2, eps, max_norm = 0.9, 0.95, 1e-8, 1.0
 
     def init(params: Dict[str, torch.Tensor]) -> AdamState:
@@ -204,8 +226,11 @@ def make_optimizer(weight_decay: float,
 
     @torch.no_grad()
     def update(grads: Dict[str, torch.Tensor], state: AdamState,
-               params: Dict[str, torch.Tensor]):
-        gnorm = global_norm_f32(grads.values())
+               params: Dict[str, torch.Tensor],
+               gnorm: Optional[torch.Tensor] = None,
+               shapes: Optional[Dict[str, tuple]] = None):
+        if gnorm is None:
+            gnorm = global_norm_f32(grads.values())
         finite = torch.isfinite(gnorm)
         # clip_by_global_norm semantics: scale only when gnorm >= max_norm
         scale = torch.where(gnorm < max_norm, torch.ones_like(gnorm),
@@ -221,7 +246,7 @@ def make_optimizer(weight_decay: float,
             m2 = b1 * mf + (1.0 - b1) * gf
             v2 = b2 * vf + (1.0 - b2) * torch.square(gf)
             u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            if decay_mask(name, p.shape):
+            if decay_mask(name, (shapes or {}).get(name, p.shape)):
                 u = u + weight_decay * p.float()
             updates[name] = torch.where(finite, u, torch.zeros_like(u)).to(p.dtype)
             mu[name] = torch.where(finite, m2, mf).to(m.dtype)
@@ -279,23 +304,30 @@ class _TrainLoss(nn.Module):
     `functional_call` runs it on the working copy of the weights. The
     backward runs inside the call too: a rematerialised block recomputes
     its forward there, and must read the working copy again, not the
-    parameters the call swaps back in when it returns."""
+    parameters the call swaps back in when it returns. Under a `mesh` the
+    batch is the data rank's part of the whole batch."""
 
     def __init__(self, model: nn.Module, cfg: Spann3RConfig, prec: Precision,
-                 fix_first: bool, remat: bool, remat_scan: Optional[bool]):
+                 fix_first: bool, remat: bool, remat_scan: Optional[bool],
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         self.model = model
         self.cfg, self.prec, self.fix_first = cfg, prec, fix_first
         self.remat, self.remat_scan = remat, remat_scan
+        self.group = None if mesh is None else mesh.data_group
+        self.data_shard = (0, 1) if mesh is None else (mesh.data_rank,
+                                                        mesh.data)
 
     def forward(self, batch, generator, alpha, wrt):
         frames = batch["img"].transpose(0, 1)            # (B,T,H,W,3)
         preds = sp.forward_train(self.model, frames, self.cfg, self.prec,
                                  generator=generator, remat=self.remat,
-                                 remat_scan=self.remat_scan)
+                                 remat_scan=self.remat_scan,
+                                 data_shard=self.data_shard)
         gts = {k: batch[k] for k in ("pts3d", "valid_mask", "camera_pose")}
         loss, details, factor_loss = losses.conf_loss_t(
-            gts, preds, alpha=alpha, norm_mode=True, fix_first=self.fix_first)
+            gts, preds, alpha=alpha, norm_mode=True, fix_first=self.fix_first,
+            group=self.group)
         loss = loss + factor_loss  # (ref training.py:217-218)
         return loss, details, torch.autograd.grad(loss, wrt, allow_unused=True)
 
@@ -307,15 +339,22 @@ def _grads_bf16_default() -> bool:
 def value_and_grad(model: nn.Module, cfg: Spann3RConfig, prec: Precision,
                    batch: Dict[str, torch.Tensor], generator, alpha: float,
                    fix_first: bool = False, grads_bf16: bool = False,
-                   remat: bool = False, remat_scan: Optional[bool] = None):
+                   remat: bool = False, remat_scan: Optional[bool] = None,
+                   layout: Optional[Layout] = None):
     """(loss, details, {name: grad}) of one batch (tensors on the model's
     device, `batch_to_device`): conf_loss_t + the scale penalty of
     `forward_train` (with its `remat` and `remat_scan`), differentiated
     against the bf16 working copy under grads_bf16, else against the
-    parameters. Nothing is read to the host."""
-    loss_mod = _TrainLoss(model, cfg, prec, fix_first, remat, remat_scan)
+    parameters. Nothing is read to the host. Under a `layout` the batch is
+    this data rank's part: the loss is the whole batch's, the gradients
+    this rank's part of its derivative (`reduce_grads` sums them), the
+    sliced weights gathered whole first."""
+    loss_mod = _TrainLoss(model, cfg, prec, fix_first, remat, remat_scan,
+                          None if layout is None else layout.mesh)
     wp = work_params(model, prec) if grads_bf16 else dict(
         model.named_parameters())
+    if layout is not None:
+        wp = layout.gather_work(wp)
     with torch.enable_grad():
         loss, details, grads = torch.func.functional_call(
             loss_mod, {f"model.{n}": t for n, t in wp.items()},
@@ -327,28 +366,44 @@ def value_and_grad(model: nn.Module, cfg: Spann3RConfig, prec: Precision,
     return loss.detach(), {k: v.detach() for k, v in details.items()}, grads
 
 
+def _reduced(grads: Dict[str, torch.Tensor], layout: Optional[Layout]):
+    """(gradients summed over the data group, the whole gradient's norm);
+    in one process the gradients as they are."""
+    if layout is None:
+        return grads, global_norm_f32(grads.values())
+    grads = layout.reduce_grads(grads)
+    return grads, layout.global_norm(grads)
+
+
 def make_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
                     fix_first: bool = False,
                     grads_bf16: Optional[bool] = None, remat: bool = False,
-                    remat_scan: Optional[bool] = None):
+                    remat_scan: Optional[bool] = None,
+                    layout: Optional[Layout] = None):
     """train_step(model, opt_state, batch, generator, lr, alpha) ->
     (opt_state, metrics): one optimizer step on `batch` (collated (T, B, ...)
     arrays or tensors), the model's parameters updated in place; `metrics`
     holds the loss, the grad norm and the loss details as device scalars.
     `generator` draws the memory dropout (None: off). `grads_bf16` (default:
     SPANN3R_GRADS_BF16) differentiates against the bf16 working copy
-    (`work_params`). `remat` and `remat_scan` are `forward_train`'s."""
+    (`work_params`). `remat` and `remat_scan` are `forward_train`'s.
+    `layout` (several processes): `batch` is this data rank's part, and
+    the step is the one-process step on the whole batch (module
+    docstring); the model and the optimizer state are the layout's parts."""
     if grads_bf16 is None:
         grads_bf16 = _grads_bf16_default()
+    shapes = None if layout is None else layout.shapes
 
     def train_step(model, opt_state, batch, generator, lr, alpha):
         params = dict(model.named_parameters())
         batch = batch_to_device(batch, next(model.parameters()).device)
         loss, details, grads = value_and_grad(model, cfg, prec, batch,
                                               generator, alpha, fix_first,
-                                              grads_bf16, remat, remat_scan)
-        gnorm = global_norm_f32(grads.values())
-        updates, opt_state = opt.update(grads, opt_state, params)
+                                              grads_bf16, remat, remat_scan,
+                                              layout)
+        grads, gnorm = _reduced(grads, layout)
+        updates, opt_state = opt.update(grads, opt_state, params, gnorm,
+                                        shapes)
         apply_updates_(params, updates, lr)
         return opt_state, dict(details, loss=loss, grad_norm=gnorm)
 
@@ -359,7 +414,8 @@ def make_accum_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
                           accum_iter: int, fix_first: bool = False,
                           grads_bf16: Optional[bool] = None,
                           remat: bool = False,
-                          remat_scan: Optional[bool] = None):
+                          remat_scan: Optional[bool] = None,
+                          layout: Optional[Layout] = None):
     """Gradient accumulation (ref training.py:226-231 accum_iter). Returns
     (train_step, None, None) for accum_iter <= 1, else (None, grad_step,
     apply_step): grad_step(model, grad_acc, batch, generator, alpha) ->
@@ -367,19 +423,24 @@ def make_accum_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
     accumulator, or nothing when their norm is not finite;
     apply_step(model, opt_state, grad_acc, lr) -> (opt_state, zeroed
     grad_acc, grad norm) runs the optimizer. `remat` and `remat_scan` are
-    `forward_train`'s."""
+    `forward_train`'s. Under a `layout` the accumulator holds this rank's
+    parts of the derivative, and apply_step sums them over the data group
+    once; a micro-batch counts on every rank or on none."""
     if grads_bf16 is None:
         grads_bf16 = _grads_bf16_default()
     if accum_iter <= 1:
         return make_train_step(cfg, prec, opt, fix_first, grads_bf16, remat,
-                               remat_scan), None, None
+                               remat_scan, layout), None, None
+    shapes = None if layout is None else layout.shapes
 
     def grad_step(model, grad_acc, batch, generator, alpha):
         batch = batch_to_device(batch, next(model.parameters()).device)
         loss, details, grads = value_and_grad(model, cfg, prec, batch,
                                               generator, alpha, fix_first,
-                                              grads_bf16, remat, remat_scan)
-        ok = torch.isfinite(global_norm_f32(grads.values()))
+                                              grads_bf16, remat, remat_scan,
+                                              layout)
+        ok = (torch.isfinite(global_norm_f32(grads.values()))
+              if layout is None else layout.all_finite(grads))
         with torch.no_grad():
             grad_acc = {n: a + torch.where(ok, grads[n].to(a.dtype),
                                            torch.zeros_like(a)) / accum_iter
@@ -388,16 +449,21 @@ def make_accum_train_step(cfg: Spann3RConfig, prec: Precision, opt: Optimizer,
 
     def apply_step(model, opt_state, grad_acc, lr):
         params = dict(model.named_parameters())
-        gnorm = global_norm_f32(grad_acc.values())
-        updates, opt_state = opt.update(grad_acc, opt_state, params)
+        grads, gnorm = _reduced(grad_acc, layout)
+        updates, opt_state = opt.update(grads, opt_state, params, gnorm,
+                                        shapes)
         apply_updates_(params, updates, lr)
-        return opt_state, zero_grads(model), gnorm
+        return opt_state, zero_grads(model, layout), gnorm
 
     return None, grad_step, apply_step
 
 
-def zero_grads(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """An fp32 gradient accumulator of zeros, one per parameter."""
+def zero_grads(model: nn.Module, layout: Optional[Layout] = None
+               ) -> Dict[str, torch.Tensor]:
+    """An fp32 gradient accumulator of zeros, one per parameter (in the
+    working copy's shapes under a `layout`)."""
+    if layout is not None:
+        return layout.zero_grads(model)
     return {n: torch.zeros_like(p) for n, p in model.named_parameters()}
 
 
@@ -425,7 +491,11 @@ class CheckpointManager:
     """last/best/periodic checkpoints + auto-resume (ref training.py:377-405,
     croco misc.save_model/load_model): output_dir/checkpoint-{name}.pth
     holding {model, optimizer, scaler, args, epoch, best_so_far}; the
-    optimizer entry is {count, mu, nu}, the scaler None (no loss scaling)."""
+    optimizer entry is {count, mu, nu}, the scaler None (no loss scaling).
+    The file holds the full tensors whatever the layout: under a `layout`
+    `save` is a collective (every rank gathers, rank 0 writes, all wait
+    for the write: a gather on rank 0 alone would wait for peers that never
+    come), and every rank reads the full file back (`restore`)."""
 
     def __init__(self, output_dir: str):
         self.dir = os.path.abspath(output_dir)
@@ -435,38 +505,45 @@ class CheckpointManager:
         return os.path.join(self.dir, f"checkpoint-{name}.pth")
 
     def save(self, name: str, model: nn.Module, opt_state: AdamState,
-             epoch: int, best: float, args) -> None:
-        state = {"model": model.state_dict(),
-                 "optimizer": {"count": opt_state.count, "mu": opt_state.mu,
-                               "nu": opt_state.nu},
-                 "scaler": None, "args": args, "epoch": epoch,
-                 "best_so_far": best}
-        tmp = self.path(name) + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self.path(name))
+             epoch: int, best: float, args,
+             layout: Optional[Layout] = None) -> None:
+        sd, mu, nu = model.state_dict(), opt_state.mu, opt_state.nu
+        if layout is not None:
+            sd = dict(sd, **layout.full_tensors(
+                {n: sd[n] for n in layout.shapes}))
+            mu, nu = layout.full_tensors(mu), layout.full_tensors(nu)
+        if layout is None or layout.mesh.rank == 0:
+            state = {"model": sd,
+                     "optimizer": {"count": opt_state.count, "mu": mu,
+                                   "nu": nu},
+                     "scaler": None, "args": args, "epoch": epoch,
+                     "best_so_far": best}
+            tmp = self.path(name) + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, self.path(name))
+        if layout is not None:
+            dist.barrier()
 
     def restore(self, name: str) -> Optional[Dict[str, Any]]:
         path = self.path(name)
         return read_checkpoint(path) if os.path.exists(path) else None
 
 
-def _opt_state_to(ckpt_opt: Dict[str, Any], device) -> AdamState:
+def _opt_state_to(ckpt_opt: Dict[str, Any], device,
+                  layout: Optional[Layout] = None) -> AdamState:
+    """A checkpoint's full optimizer state as this rank's part on
+    `device`."""
+    mu, nu = ckpt_opt["mu"], ckpt_opt["nu"]
+    if layout is not None:
+        mu, nu = layout.shard_tensors(mu), layout.shard_tensors(nu)
     return AdamState(ckpt_opt["count"].to(device),
-                     {n: t.to(device) for n, t in ckpt_opt["mu"].items()},
-                     {n: t.to(device) for n, t in ckpt_opt["nu"].items()})
+                     {n: t.to(device) for n, t in mu.items()},
+                     {n: t.to(device) for n, t in nu.items()})
 
 
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
-
-def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: no CUDA device is available; pass "
-                           "--device cpu to train on the CPU")
-    return dev
-
 
 def precision_flag(name: str, bf16) -> bool:
     """SPANN3R_ADAM_BF16 or SPANN3R_GRADS_BF16 as `train` reads it: "1" on,
@@ -477,13 +554,25 @@ def precision_flag(name: str, bf16) -> bool:
 
 
 def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
-    """Run the training recipe in one process. `model_cfg` overrides the
-    model architecture (the CLI trains the published ViT-L configuration
-    built from --resolution/--head_type); tests inject tiny ones."""
-    if args.model_axis > 1 or args.fsdp:
-        raise NotImplementedError(f"--model_axis {args.model_axis} --fsdp "
-                                  f"{args.fsdp}: {_MULTI_PROCESS}")
-    device = _device(args.device)
+    """Run the training recipe: in one process, or as one rank of the group
+    that torchrun's environment describes (`init_distributed`; the group
+    is left when the run ends if this call joined it). `model_cfg`
+    overrides the model architecture (the CLI trains the published ViT-L
+    configuration built from --resolution/--head_type); tests inject tiny
+    ones."""
+    joined = not dist.is_initialized()
+    device = init_distributed(args.device)
+    try:
+        return _train(args, model_cfg, device)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, model_cfg: Optional[Spann3RConfig],
+           device: torch.device) -> Dict[str, Any]:
+    mesh = make_mesh(args.model_axis)
+    rank0 = mesh.rank == 0
     set_tf32_policy()
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -491,14 +580,17 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
     cfg = model_cfg if model_cfg is not None else Spann3RConfig(
         dust3r=DUSt3RConfig(img_size=(args.resolution, args.resolution),
                             head_type=args.head_type))
-    print(f"device: {device}; one process")
+    print(f"device: {device}; process {mesh.rank}/{mesh.world} "
+          f"(data {mesh.data} x model {mesh.model})")
 
     train_ds = build_dataset(args.train_dataset)
     test_dss = {}
     if args.test_dataset:
         for expr in args.test_dataset.split("+"):
             test_dss[expr.strip().split("(")[0]] = build_dataset(expr)
-    sampler = make_sampler(train_ds, args.batch_size)
+    # the data rank: the model ranks of one data rank read the same clips
+    sampler = make_sampler(train_ds, args.batch_size, world_size=mesh.data,
+                           rank=mesh.data_rank)
     loader = DataLoader(train_ds, args.batch_size, sampler=sampler,
                         num_workers=args.num_workers)
 
@@ -524,37 +616,49 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
         # warm start = weights only; the optimizer starts fresh
         load_spann3r_checkpoint(args.pretrained, model)
         print(f"warm-started weights from {args.pretrained}")
-    opt_state = opt.init(dict(model.named_parameters()))
 
+    # every rank reads the full files; the layout then keeps its parts
     ckpt = CheckpointManager(args.output_dir)
     start_epoch, best_so_far = 0, float("inf")
     restored = ckpt.restore("last")
     if restored is not None:
         model.load_state_dict(restored["model"])
-        opt_state = _opt_state_to(restored["optimizer"], device)
+    layout = None
+    if mesh.distributed:
+        layout = Layout(model, cfg, mesh, bool(args.fsdp), args.tp_min_dim)
+        layout.shard_model_(model)
+        if args.model_axis > 1 or args.fsdp:
+            print(f"sharded params: {layout.describe()}")
+    if restored is not None:
+        opt_state = _opt_state_to(restored["optimizer"], device, layout)
         start_epoch = int(restored["epoch"]) + 1
         best_so_far = float(restored["best_so_far"])
         print(f"auto-resumed from epoch {start_epoch}")
+    else:
+        opt_state = opt.init(dict(model.named_parameters()))
 
-    eff_batch = args.batch_size * args.accum_iter
+    eff_batch = args.batch_size * args.accum_iter * mesh.data
     if args.lr is None:
         args.lr = args.blr * eff_batch / 256
 
     train_step, grad_step, apply_step = make_accum_train_step(
         cfg, prec, opt, args.accum_iter, grads_bf16=grads_bf16,
-        remat=bool(args.remat), remat_scan=bool(args.remat_scan) or None)
+        remat=bool(args.remat), remat_scan=bool(args.remat_scan) or None,
+        layout=layout)
     eval_step = make_eval_step(cfg, prec)
-    grad_acc = zero_grads(model) if args.accum_iter > 1 else None
+    grad_acc = zero_grads(model, layout) if args.accum_iter > 1 else None
 
-    snapshot_sources(args.output_dir)
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-        writer = SummaryWriter(log_dir=args.output_dir)
-    except ImportError:
-        pass
+    if rank0:
+        snapshot_sources(args.output_dir)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            writer = SummaryWriter(log_dir=args.output_dir)
+        except ImportError:
+            pass
 
     log_path = os.path.join(args.output_dir, "log.txt")
+    # the same seed on every rank: each draws the whole batch's dropout
     generator = torch.Generator(device).manual_seed(args.seed)
     steps_per_epoch = max(len(loader), 1)
     t0 = time.time()
@@ -568,27 +672,30 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
         test_stats = {}
         if epoch > 0 and args.eval_freq > 0 and epoch % args.eval_freq == 0:
             for name, tds in test_dss.items():
-                test_stats[name] = test_one_epoch(
-                    eval_step, model, tds, args.batch_size_test,
-                    output_dir=args.output_dir, epoch=epoch)
+                with (layout.gathered(model) if layout is not None
+                      else contextlib.nullcontext()):
+                    test_stats[name] = test_one_epoch(
+                        eval_step, model, tds, args.batch_size_test,
+                        output_dir=args.output_dir, epoch=epoch, mesh=mesh)
                 med = test_stats[name].get("loss_med", float("inf"))
                 if med < best_so_far:
                     best_so_far = med
                     ckpt.save("best", model, opt_state, epoch - 1,
-                              best_so_far, args)
+                              best_so_far, args, layout)
         if epoch > start_epoch:
             if args.save_freq and (epoch % args.save_freq == 0
                                    or epoch == args.epochs):
                 ckpt.save("last", model, opt_state, epoch - 1, best_so_far,
-                          args)
+                          args, layout)
             if args.keep_freq and epoch % args.keep_freq == 0:
                 ckpt.save(str(epoch), model, opt_state, epoch - 1,
-                          best_so_far, args)
+                          best_so_far, args, layout)
 
-        stats = {f"test_{k}_{k2}": float(v2) for k, v in test_stats.items()
-                 for k2, v2 in v.items()}
-        with open(log_path, "a") as f:
-            f.write(json.dumps(dict(epoch=epoch, **stats)) + "\n")
+        if rank0:
+            stats = {f"test_{k}_{k2}": float(v2)
+                     for k, v in test_stats.items() for k2, v2 in v.items()}
+            with open(log_path, "a") as f:
+                f.write(json.dumps(dict(epoch=epoch, **stats)) + "\n")
 
         if epoch >= args.epochs:
             break
@@ -605,7 +712,7 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
         from .utils.metrics import MetricLogger
         logger = MetricLogger()
         prof = None
-        if args.profile_dir and epoch == start_epoch:
+        if args.profile_dir and epoch == start_epoch and rank0:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -616,7 +723,9 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
         # iteration): the optimizer suppresses non-finite updates on the
         # device (make_optimizer), and the host reads the PREVIOUS step's
         # loss after enqueueing the current one, so steps dispatch back to
-        # back and a poisoned update never reaches the weights.
+        # back and a poisoned update never reaches the weights. The loss
+        # and the norm are the whole batch's, the same on every rank, so
+        # every rank raises at the same step.
         pending = None  # (iteration, loss, grad_norm) of the prior step
 
         def check_pending(p):
@@ -682,7 +791,7 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
                                                   "trace.json"))
         logger.synchronize_between_processes()
         print(f"E{epoch} averaged stats: {logger}")
-        if logger.meters["loss"].count > 0:
+        if rank0 and logger.meters["loss"].count > 0:
             # per-epoch train summary (ref croco/utils/misc.py log_stats)
             with open(log_path, "a") as f:
                 f.write(json.dumps({
@@ -695,7 +804,7 @@ def train(args, model_cfg: Optional[Spann3RConfig] = None) -> Dict[str, Any]:
         writer.close()
     print(f"Training done in {time.time() - t0:.0f}s")
     return {"model": model, "opt_state": opt_state, "best": best_so_far,
-            "last_loss": last_loss}
+            "last_loss": last_loss, "layout": layout}
 
 
 def snapshot_sources(output_dir: str) -> None:
@@ -735,9 +844,55 @@ def _dump_eval_plys(out_dir: str, epoch: int, batch, preds, start_idx: int,
     return written
 
 
-def _merge_eval_stats(losses_all, detail_sums) -> Dict[str, float]:
-    """The eval statistics of the one process: mean and median loss, the
-    details' means (JAX _merge_eval_stats at a world of one)."""
+def _eval_rank_indices(n: int, world: int, rank: int) -> list:
+    """Strided partition of the eval set: rank r evaluates items r,
+    r + world, ... The union over the ranks is range(n) with no overlap, so
+    the merged statistics equal one process's (JAX _eval_rank_indices)."""
+    return list(range(rank, n, world))
+
+
+def _merge_eval_stats(losses_all, detail_sums, world: int,
+                      gather_fn=None) -> Dict[str, float]:
+    """The eval statistics of all data ranks from each rank's per-batch
+    losses and summed details: mean and median loss, the details' means
+    (JAX _merge_eval_stats). gather_fn(np array) -> (world, ...) stack of
+    every rank's array (default: an all-gather over the default group).
+
+    The per-rank batch counts may differ: the losses are NaN-padded to the
+    largest count. The detail gathers run on every rank whatever its
+    count: a rank whose part of the set is empty has no detail names, and
+    leaving it out of a gather its peers enter would hang the eval. The
+    names and their width are agreed through gathers; an empty rank
+    contributes zeros."""
+    if world > 1:
+        if gather_fn is None:
+            def gather_fn(a):
+                return gather_numpy(a, None, comm_device())
+        counts = np.asarray(gather_fn(np.asarray([len(losses_all)],
+                                                 np.int32))).ravel()
+        width = int(counts.max()) if counts.size else 0
+        pad = np.full(max(1, width), np.nan, np.float32)
+        pad[:len(losses_all)] = losses_all
+        gathered = np.asarray(gather_fn(pad)).ravel()
+        losses_all = gathered[np.isfinite(gathered)].tolist()
+        names = sorted(detail_sums)
+        n_names = np.asarray(gather_fn(np.asarray([len(names)],
+                                                  np.int32))).ravel()
+        nw = int(n_names.max()) if n_names.size else 0
+        enc = np.zeros((max(1, nw), 48), np.uint8)
+        for i, k in enumerate(names):
+            kb = k.encode()[:48]
+            enc[i, :len(kb)] = np.frombuffer(kb, np.uint8)
+        enc_all = np.asarray(gather_fn(enc)).reshape(world, max(1, nw), 48)
+        vals = np.zeros(max(1, nw), np.float32)
+        for i, k in enumerate(names):
+            vals[i] = detail_sums[k]
+        summed = np.asarray(gather_fn(vals)).reshape(world, -1).sum(0)
+        if nw:
+            src = int(np.argmax(n_names))  # a rank with the full key set
+            names_g = [bytes(row[row != 0]).decode()
+                       for row in enc_all[src, :int(n_names[src])]]
+            detail_sums = dict(zip(names_g, summed[:len(names_g)].tolist()))
     if not losses_all:
         return {}
     stats = {"loss_avg": float(np.mean(losses_all)),
@@ -749,18 +904,27 @@ def _merge_eval_stats(losses_all, detail_sums) -> Dict[str, float]:
 
 def test_one_epoch(eval_step, model, dataset, batch_size: int,
                    output_dir: Optional[str] = None, epoch: int = 0,
-                   max_ply: int = 10) -> Dict[str, float]:
+                   max_ply: int = 10, gather_fn=None,
+                   mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Seeded held-out eval: mean and median loss and the per-detail means;
     optionally dumps the first `max_ply` reconstructions as PLYs (ref
-    training.py:94-168)."""
+    training.py:94-168). Under a `mesh` each data rank walks its strided
+    part of the set (the model ranks of one data rank the same part, all
+    counted once) and the statistics are merged over the data group
+    (`gather_fn`, default the mesh's gather); rank 0 writes the PLYs."""
     if hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)
-    loader = DataLoader(dataset, batch_size, sampler=list(range(len(dataset))),
+    world, rank = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
+    if gather_fn is None and mesh is not None and mesh.distributed:
+        gather_fn = mesh.gather_numpy
+    loader = DataLoader(dataset, batch_size,
+                        sampler=_eval_rank_indices(len(dataset), world, rank),
                         num_workers=1)
     losses_all = []
     detail_sums: Dict[str, float] = {}
     ply_dir = None
-    if output_dir is not None and max_ply > 0:
+    if output_dir is not None and max_ply > 0 and (mesh is None
+                                                   or mesh.rank == 0):
         ply_dir = os.path.join(output_dir, "eval_ply")
         os.makedirs(ply_dir, exist_ok=True)
     n_ply = 0
@@ -772,4 +936,4 @@ def test_one_epoch(eval_step, model, dataset, batch_size: int,
         if ply_dir is not None and n_ply < max_ply:
             n_ply += _dump_eval_plys(ply_dir, epoch, batch, preds, n_ply,
                                      max_ply)
-    return _merge_eval_stats(losses_all, detail_sums)
+    return _merge_eval_stats(losses_all, detail_sums, world, gather_fn)

@@ -11,6 +11,13 @@ from __future__ import annotations
 import torch
 
 
+def sum_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den, NaN where den is 0: a masked mean from its sum and count
+    (the sums may be taken over several processes first)."""
+    return torch.where(den > 0, num / den.clamp(min=1e-8),
+                       torch.full_like(num, float("nan")))
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
                 keepdims: bool = False) -> torch.Tensor:
     """Mean of x where mask. Zero valid elements -> NaN, as `x[mask].mean()`
@@ -23,8 +30,7 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None,
     else:
         num = (x * m).sum(dim=axis, keepdim=keepdims)
         den = m.sum(dim=axis, keepdim=keepdims)
-    return torch.where(den > 0, num / den.clamp(min=1e-8),
-                       torch.full_like(num, float("nan")))
+    return sum_ratio(num, den)
 
 
 def _sorted_filled(x: torch.Tensor, mask: torch.Tensor, axis: int):

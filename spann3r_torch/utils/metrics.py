@@ -30,7 +30,10 @@ class SmoothedValue:
         import torch.distributed as dist
         if not (dist.is_available() and dist.is_initialized()):
             return
-        arr = torch.tensor([self.count, self.total], dtype=torch.float64)
+        from ..parallel.mesh import comm_device
+        # on the device the group's backend takes: NCCL takes CUDA tensors
+        arr = torch.tensor([self.count, self.total], dtype=torch.float64,
+                           device=comm_device())
         dist.all_reduce(arr)
         self.count = int(arr[0])
         self.total = float(arr[1])

@@ -391,3 +391,73 @@ def test_parity_train_config_runs_the_kernels():
     assert cfg.dust3r.enc.head_dim == cfg.dust3r.dec.head_dim == 64
     assert cfg.value_enc_dim // cfg.value_enc_heads == 64
     assert cfg.dust3r.img_size == chip_smoke.HW_224
+
+
+# ---------------------------------------------------------------------------
+# phase 12's helpers
+# ---------------------------------------------------------------------------
+
+def test_rank_parts_rebuild_the_uneven_global_batch():
+    """The global batch of phase 12 (b): each clip keeps its own share of
+    valid pixels, so the two ranks hold different valid counts; the ranks'
+    parts, in rank order, are the global batch."""
+    import numpy as np
+
+    batch = chip_smoke.uneven_batch(3, 2, (32, 32), chip_smoke.DIST_KEEP, 7)
+    parts = [chip_smoke.rank_part(batch, r, 2) for r in range(2)]
+    for k, v in batch.items():
+        assert parts[0][k].shape[1] == 1
+        np.testing.assert_array_equal(
+            np.concatenate([p[k] for p in parts], axis=1), v)
+    shares = [p["valid_mask"].mean() for p in parts]
+    for got, want in zip(shares, chip_smoke.DIST_KEEP):
+        assert abs(got - want) < 0.02
+    assert chip_smoke.rank_part(batch, 0, 1)["img"] is not None
+
+
+def test_dist_fault_is_rejected():
+    """grads_agree passes the reference against itself and a difference
+    well inside DIST_TOL, and rejects gradients averaged over two ranks
+    where they must be summed."""
+    g = {"a": _randn(8, 8, seed=20), "b": _randn(16, seed=21)}
+    gmax = max(float(v.abs().max()) for v in g.values())
+    assert chip_smoke.grads_agree(3.0, g, 3.0, g, gmax)[0]
+    near = {k: v + 1e-7 * gmax for k, v in g.items()}
+    assert chip_smoke.grads_agree(3.0 * (1 + 1e-7), near, 3.0, g, gmax)[0]
+    avg = {k: v / 2 for k, v in g.items()}
+    ok, dl, dg = chip_smoke.grads_agree(3.0, avg, 3.0, g, gmax)
+    assert not ok and dl == 0 and dg > 0.1
+    assert not chip_smoke.grads_agree(3.1, g, 3.0, g, gmax)[0]
+
+
+def test_state_bytes_prediction():
+    """fp32 master and two moments a parameter; a sliced one as ceil(numel
+    / n) elements a rank. The published configuration at 224 with bf16
+    moments: 658,691,208 parameters, ~4.9 GiB in one process; --fsdp 1 at
+    world 2 (the rule at --tp_min_dim 1024: input dim >= 1024, which leaves
+    the decoders' 768-wide qkv, projections and fc1 whole) slices 67.7% of
+    them, and holds half of that share a rank."""
+    from spann3r_torch import config as C
+    from spann3r_torch.models import spann3r as S
+    from spann3r_torch.parallel import sharding
+
+    shapes = {"w": (3, 5), "b": (5,)}
+    assert chip_smoke.state_bytes(shapes, set(), 2, 2) == 20 * 8
+    assert chip_smoke.state_bytes(shapes, {"w"}, 2, 4) == (8 + 5) * 12
+    with torch.device("meta"):
+        model = S.Spann3R(C.Spann3RConfig(
+            dust3r=C.DUSt3RConfig(img_size=(224, 224), head_type="dpt")))
+    full = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    assert sum(int(torch.Size(s).numel()) for s in full.values()) == 658691208
+    one = chip_smoke.state_bytes(full, set(), 1, 2)
+    assert one == 658691208 * 8 and 4.9 < one / 2**30 < 4.91
+    mesh = type("M", (), {"model": 1, "data": 2, "model_rank": 0,
+                          "data_rank": 0, "model_group": None})()
+    layout = sharding.Layout(model, C.Spann3RConfig(
+        dust3r=C.DUSt3RConfig(img_size=(224, 224), head_type="dpt")),
+        mesh, fsdp=True)
+    sliced = set(layout.fsdp)
+    two = chip_smoke.state_bytes(full, sliced, 2, 2)
+    share = sum(int(torch.Size(full[n]).numel()) for n in sliced) / 658691208
+    assert 0.67 < share < 0.68
+    assert abs((one - two) - share * one / 2) < 1e6

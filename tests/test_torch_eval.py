@@ -54,7 +54,9 @@ PORT_ONLY_LINES = {
     # a world of one unless torch.distributed is initialised
     "utils/metrics.py": {
         "if not (dist.is_available() and dist.is_initialized()):",
-        "arr = torch.tensor([self.count, self.total], dtype=torch.float64)",
+        "# on the device the group's backend takes: NCCL takes CUDA tensors",
+        "arr = torch.tensor([self.count, self.total], dtype=torch.float64,",
+        "device=comm_device())",
         "dist.all_reduce(arr)", "self.count = int(arr[0])",
         "self.total = float(arr[1])"},
     "native/__init__.py": {

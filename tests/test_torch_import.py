@@ -45,6 +45,8 @@ MODULES = [
     "spann3r_torch.tools.convergence", "spann3r_torch.tools.convergence_gate",
     "spann3r_torch.tools.int8_gate", "spann3r_torch.tools.bf16fast_gate",
     "spann3r_torch.tools.readiness_drill", "spann3r_torch.tools.train_memory",
+    "spann3r_torch.parallel", "spann3r_torch.parallel.mesh",
+    "spann3r_torch.parallel.sharding",
 ]
 
 

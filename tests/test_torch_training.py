@@ -394,12 +394,55 @@ def test_train_cli_trains_saves_resumes_and_warm_starts(tmp_path, tiny_cli,
     assert int(res["opt_state"].count) == 0
 
 
-@pytest.mark.parametrize("flags", [["--model_axis", "2"], ["--fsdp", "1"],
-                                   ["--model_axis", "2", "--remat", "1"],
-                                   ["--fsdp", "1", "--remat_scan", "1"]])
-def test_train_refuses_what_is_not_ported(tmp_path, flags):
-    args = TT.get_args_parser().parse_args(_cli_args(tmp_path, 1, flags))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flags", [["--fsdp", "0"], ["--fsdp", "1"],
+                                   ["--fsdp", "1", "--remat_scan", "1"],
+                                   ["--fsdp", "1", "--bf16", "1"]])
+def test_world_1_gives_the_one_process_bits(tmp_path, tiny_cli, monkeypatch,
+                                           flags):
+    """Under torchrun's environment at world 1 (a gloo group of one rank)
+    the trainer runs its multi-process path: every collective of one rank
+    is the identity, and --fsdp 1 slices every weight of input dim >= 32
+    into one whole slice. The weights after the run are the one-process
+    trainer's, bit for bit."""
+    import socket
+
+    from spann3r_torch.parallel import mesh as pmesh
+
+    seeded = SYNTH.replace(")", ", seed=777)")
+    flags = flags + ["--tp_min_dim", "32", "--train_dataset", f"4 @ {seeded}",
+                     "--test_dataset", seeded.replace("num_seq=3", "num_seq=2")]
+    want = TT.train(TT.get_args_parser().parse_args(
+        _cli_args(tmp_path / "one", 1, flags)))["model"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    res = TT.train(TT.get_args_parser().parse_args(
+        _cli_args(tmp_path / "group", 1, flags)))
+    assert not torch.distributed.is_initialized()    # left when it ended
+    layout = res["layout"]
+    assert layout is not None and layout.mesh.world == 1
+    assert bool(layout.fsdp) == ("1" in flags[:2])
+    got = dict(res["model"].named_parameters())
+    for name, p in want.named_parameters():
+        full = got[name].detach().view(p.shape)
+        assert torch.equal(full, p.detach()), name
+    ck = convert.read_checkpoint(str(tmp_path / "group"
+                                     / "checkpoint-last.pth"))
+    for name, p in want.named_parameters():
+        assert torch.equal(ck["model"][name], p.detach()), name
+    assert pmesh.make_mesh(1).world == 1
+
+
+@pytest.mark.parametrize("flags", [[], ["--remat", "1"]])
+def test_model_axis_must_divide_the_world(tmp_path, flags):
+    """--model_axis 2 in one process: a ValueError naming both numbers
+    (the JAX mesh's assertion), before anything is built."""
+    args = TT.get_args_parser().parse_args(
+        _cli_args(tmp_path, 1, ["--model_axis", "2", *flags]))
+    with pytest.raises(ValueError, match="--model_axis 2 .* world size 1"):
         TT.train(args)
 
 
