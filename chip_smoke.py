@@ -66,7 +66,13 @@ Phases, each printing its results; any failure raises and exits non-zero:
                peak memory); on one fixed batch at constant LR the last
                loss below the first; the FP32 gradients of the three remat
                settings on one batch with dropout on, within
-               REMAT_GRAD_TOL of the largest |grad|;
+               REMAT_GRAD_TOL of the largest |grad|; then 3 steps of the
+               same model on a mixture of the six datasets that read files
+               (CO3D, BlendedMVS, ScanNet, ScanNet++, ARKitScenes, Habitat:
+               fixture trees in their layouts at their raw sizes, written
+               from a seed), their launches against train_launches and the
+               loader's clips/s, and `python -m spann3r_torch.train` on the
+               mixture for one epoch at the CLI's defaults;
   11. gate   - (run after phase 10) the convergence gate's miniature:
                run_gate on its small configuration at 112 x 112, 2 epochs
                of 15 steps at B = 8, remat on: the held-out eval loss must
@@ -93,6 +99,20 @@ Phases, each printing its results; any failure raises and exits non-zero:
                224, B = 1 x T = 5 each, --fsdp 0 and 1: the state each
                rank holds before a step against `state_bytes`, and its
                peak memory;
+  13. pretrain - (run last) CroCo pretraining at two published
+               configurations at 224, B = 64, bf16: CroCoNet() (the
+               pretraining CLI's default; its decoder has head dim 32) and
+               the CroCo v2 ViT-L / Base decoder with RoPE100, 5 steps each
+               on one batch: launches of step 1 against pretrain_launches,
+               finite losses, the last below the first, the median step,
+               images/s and peak memory; then box-room pairs from
+               `python -m spann3r_torch.habitat_gen.scripts`, `python -m
+               torch.distributed.run --nproc_per_node 1 -m
+               spann3r_torch.pretrain` for one epoch and again to resume
+               it, `python -m spann3r_torch.tools.croco_demo` on its
+               checkpoint; and one FP32 pretrain step of a narrow
+               configuration (head dims 64 and 32, RoPE100), card against
+               CPU within 1e-3;
   9. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
                offline: the card (kernels) against the CPU (plain
                versions), the same frame order, tolerance 1e-3; the
@@ -101,6 +121,9 @@ Phases, each printing its results; any failure raises and exits non-zero:
                one FP32 train step of a narrow configuration with head
                dim 64 (loss and every gradient, within 1e-3 of the
                largest |grad|).
+Phase 3 also holds K2 and its backward at head dim 32 (DH32_SHAPES: the
+CroCoNet() decoder at B = 64, ragged 20-token tiles, N != M), with planted
+faults on the columns and the last tile (records under "head_dim_32").
 Phase 3 also holds K2's backward kernel and K3 at sign -1 (the backward)
 against their plain versions at the training shapes and the 512 encoder's,
 with planted faults (K2's: one in each of dq, dk and dv), K2's and K3's
@@ -579,6 +602,7 @@ def phase_kernels(records):
                                 torch.matmul(a, v.float()).to(dtype), want,
                                 TOL_BF16, extra[0] if extra else 0.0)
         backward_cases(case, planted, dtype, randn, records)
+        head_dim_32_cases(case, planted, dtype, randn, records)
     records["rope2d"]["decoder"] = rope_decoder
     records["rope2d"]["offline"] = rope_offline
     records["sdpa"]["offline"] = sdpa_offline
@@ -717,6 +741,108 @@ def backward_cases(case, planted, dtype, randn, records):
             wrong[:, -1] = dk[:, -1]
             planted(f"rope2d_bwd {label}: the last head of dk unrotated",
                     wrong, want, TOL_ROPE_BF16)
+
+
+# K2 and its backward at head dim 32, the CroCoNet() decoder's (512 wide, 16
+# heads, 196 tokens at 224, the pretraining CLI's batch of 64), a ragged
+# 20-token shape (the encoder's visible tokens at mask ratio 0.9) and N != M
+DH32_SHAPES = (("decoder", 64, 16, 196, 196), ("ragged", 64, 16, 20, 20),
+               ("N!=M", 64, 16, 20, 196))
+
+
+def head_dim_32_cases(case, planted, dtype, randn, records):
+    """K2 and its backward at head dim 32 against their plain versions, q,
+    k and v strided slices of one packed qkv projection (so the 32 columns
+    past a head's are the next head's: the kernel's loads must be masked by
+    column), dO a (B, N, H, 32) view. Planted faults, bf16: the forward as
+    if the logits had read 64 columns (the next head's 32 with them), its
+    output's columns 16-31 a copy of 0-15, and its last key tile's PV left
+    out; the backward's dq with columns 16-31 a copy of 0-15, dk with them
+    left out, dv with them doubled, and the three last-tile faults of
+    `backward_cases`. Records (bf16) under "head_dim_32" of the sdpa and
+    sdpa_bwd records."""
+    import torch.nn.functional as F
+
+    from spann3r_torch.ops import attention
+
+    main = dtype == torch.bfloat16
+    esize = torch.finfo(dtype).bits // 8
+    d, scale = 32, 32 ** -0.5
+    for label, b, h, n, m in DH32_SHAPES:
+        rows = max(n, m)
+        buf = randn(b, rows, 3, h, d, dtype=dtype)
+        qkv = buf.permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0, :, :, :n], qkv[1, :, :, :m], qkv[2, :, :, :m]
+        shape = f"({b},{h},{n},{m},32)"
+        rec = case("sdpa", f"head dim 32 {label} {shape}", dtype,
+                   lambda: attention.sdpa_cuda(q, k, v, scale),
+                   lambda: attention.sdpa_plain(q, k, v, scale), False,
+                   (4.0 * b * h * n * m * d, esize * 2.0 * b * h * (n + m) * d),
+                   run_library=lambda: F.scaled_dot_product_attention(
+                       q, k, v, scale=scale))
+        if main:
+            records["sdpa"].setdefault("head_dim_32", {})[label] = rec
+            want = attention.sdpa_plain(q, k, v, scale)
+            # the logits over 64 columns: each head's 32 and the next 32 of
+            # the projection's row (the next head, or k's first after q's
+            # last, zero past the row's end)
+            flat = torch.cat([buf.reshape(b, rows, -1),
+                              buf.new_zeros(b, rows, d)], -1)
+            wide = lambda part, r: torch.stack(
+                [flat[:, :r, (part * h + i) * d:(part * h + i) * d + 2 * d]
+                 for i in range(h)], 1).float()
+            p = torch.softmax(torch.matmul(wide(0, n), wide(1, m).transpose(
+                -1, -2)) * scale, -1).to(dtype).float()
+            planted(f"sdpa head dim 32 {label} {shape}: logits over 64 "
+                    f"columns", torch.matmul(p, v.float()).to(dtype), want,
+                    TOL_BF16)
+            dup = want.clone()
+            dup[..., 16:] = want[..., :16]
+            planted(f"sdpa head dim 32 {label} {shape}: columns 16-31 a copy "
+                    f"of 0-15", dup, want, TOL_BF16)
+            p = torch.softmax(torch.matmul(q.float(), k.float().transpose(
+                -1, -2)) * scale, dim=-1).to(dtype).float()
+            p[..., 64 * ((m - 1) // 64):] = 0.0
+            planted(f"sdpa head dim 32 {label} {shape}: without its last key "
+                    f"tile", torch.matmul(p, v.float()).to(dtype), want,
+                    TOL_BF16)
+        dout = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+        _, lse = attention.sdpa_cuda(q, k, v, scale, with_lse=True)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                         scale=scale)
+        rec = case(
+            "sdpa_bwd", f"head dim 32 {label} {shape}", dtype,
+            lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, scale),
+            lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, scale),
+            False, (10.0 * b * h * n * m * d,
+                    esize * (3.0 * n + 4.0 * m) * b * h * d + 4.0 * b * h * n),
+            run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl),
+                                                    dout),
+            library_minus=lib_fwd)
+        if main:
+            records["sdpa_bwd"].setdefault("head_dim_32", {})[label] = rec
+            want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+            wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse,
+                                                        scale)
+            wrong_dk = want[1].clone()
+            wrong_dk[..., -64:, :] = 0.0
+            faults = [("dq without its last key tile", wrong_dq, 0),
+                      ("dk without its last key tile", wrong_dk, 1),
+                      ("dv without its last query tile", wrong_dv, 2)]
+            for i, (what, fill) in enumerate((
+                    ("columns 16-31 a copy of 0-15", lambda g: g[..., :16]),
+                    ("columns 16-31 left out", lambda g: 0.0),
+                    ("columns 16-31 doubled", lambda g: 2 * g[..., 16:]))):
+                wrong = want[i].clone()
+                wrong[..., 16:] = fill(want[i])
+                faults.append((f"{'dq dk dv'.split()[i]} with {what}", wrong,
+                               i))
+            for what, wrong, i in faults:
+                planted(f"sdpa_bwd head dim 32 {label} {shape}: {what}",
+                        wrong, want[i], TOL_BF16)
+            del want, wrong_dq, wrong_dk, wrong_dv
 
 
 # ---------------------------------------------------------------------------
@@ -1570,6 +1696,7 @@ def phase_train(records, card):
         raise AssertionError("on one fixed batch the loss did not fall")
     for name in _kernels.BACKWARD_KERNELS:
         records[name]["launches"] = counts[name]
+    mixture_steps(model, cfg, opt_state, step, gen, card)
     del opt_state, step
     torch.cuda.empty_cache()
     remat_gradients(model, cfg, batches[0])
@@ -1577,6 +1704,106 @@ def phase_train(records, card):
     torch.cuda.empty_cache()
     log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
     return by_setting["off"][0]
+
+
+# the training mixture of the reference's recipe over the six datasets that
+# read files, each on a fixture tree in its own layout (one scene of
+# MIX_FRAMES frames at its raw capture sizes; Habitat: MIX_CLIPS box-room
+# clips of 5 views at 128 x 128), MIX_EACH items of each, B = 2 clips of
+# TRAIN_T frames at 224
+MIX_KINDS = ("Co3d", "BlendMVS", "Scannet", "Scannetpp", "ArkitScene",
+             "habitat")
+MIX_FRAMES, MIX_CLIPS, MIX_EACH, MIX_STEPS = 20, 4, 2, 3
+
+
+def mixture_trees(root):
+    """Write the fixture trees under root: {kind: the dataset's kwargs}."""
+    from spann3r_torch.tools import dataset_fixtures as fx
+
+    return {kind: fx.write_tree(kind, os.path.join(root, kind), seed=SEED + i,
+                                frames=MIX_CLIPS if kind == "habitat"
+                                else MIX_FRAMES,
+                                shrink=2 if kind == "habitat" else 1)
+            for i, kind in enumerate(MIX_KINDS)}
+
+
+def mixture_expr(trees, each):
+    """The mixture in the reference's expression form, `each` items of
+    every dataset, clips of TRAIN_T frames at 224."""
+    from spann3r_torch.tools import dataset_fixtures as fx
+
+    return " + ".join(fx.expression(kind, kw, each, 224, num_frames=TRAIN_T)
+                      for kind, kw in trees.items())
+
+
+def mixture_steps(model, cfg, opt_state, step, gen, card):
+    """MIX_STEPS train steps of phase 10's model and optimizer on batches of
+    the six-dataset mixture: launches of each step equal to
+    train_launches, finite losses, the loader's clips/s beside the step
+    time; then `python -m spann3r_torch.train` at the CLI's defaults on one
+    item of each dataset (one epoch: 3 steps of 2 clips)."""
+    import shutil
+    import tempfile
+
+    from spann3r_torch.ops import _kernels
+
+    t_part = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="spann3r_mix_")
+    try:
+        t0 = time.perf_counter()
+        trees = mixture_trees(root)
+        expr = mixture_expr(trees, MIX_EACH)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = train_batches(MIX_STEPS, dataset=expr)
+        load_s = time.perf_counter() - t0
+        clips = MIX_STEPS * TRAIN_B
+        log(f"[train] mixture: {expr}")
+        log(f"[train] mixture fixtures written in {write_s:.1f} s; loader: "
+            f"{clips} clips of {TRAIN_T} frames in {load_s:.2f} s "
+            f"({clips / load_s:.2f} clips/s, 2 workers)")
+        want = train_launches(cfg, TRAIN_T)
+        walls, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            opt_state, m = step(model, opt_state, b, gen, TRAIN_LR, 0.4)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts = _kernels.launch_counts()
+            losses.append(float(m["loss"]))
+            if counts != want:
+                raise AssertionError(f"mixture step launches {counts}, "
+                                     f"expected {want}")
+        log(f"[train] mixture steps: loss {[round(x, 4) for x in losses]}, "
+            f"step ms {[round(x, 1) for x in walls]} (median "
+            f"{statistics.median(walls):.1f}; the loader "
+            f"{TRAIN_B / (clips / load_s) * 1e3:.1f} ms a batch) on {card}; "
+            f"launches of each step = train_launches {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError("a mixture step's loss is not finite")
+        t0 = time.perf_counter()
+        out = os.path.join(root, "train_out")
+        cmd = [sys.executable, "-m", "spann3r_torch.train", "--epochs", "1",
+               "--save_freq", "0", "--num_workers", "1", "--train_dataset",
+               mixture_expr(trees, 1), "--output_dir", out]
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True,
+            timeout=DIST_WORKER_TIMEOUT)
+        lines = (proc.stdout + proc.stderr).splitlines()
+        steps = len(MIX_KINDS) // TRAIN_B
+        done = [x for x in lines if x.startswith(f"E0 it0/{steps} loss=")]
+        if proc.returncode != 0 or not done:
+            raise AssertionError("python -m spann3r_torch.train on the "
+                                 "mixture failed:\n" + "\n".join(lines[-60:]))
+        log(f"[train] python -m spann3r_torch.train --train_dataset "
+            f"'<the mixture, 1 item each>' (the CLI's defaults: one epoch of "
+            f"{steps} steps at B={TRAIN_B}): '{done[0].strip()}' in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[train] mixture part took {time.perf_counter() - t_part:.1f} s")
 
 
 def remat_gradients(model, cfg, batch):
@@ -2252,13 +2479,238 @@ def _gloo_memory(dev):
         torch.cuda.empty_cache()
 
 
-def train_batches(n, b=TRAIN_B):
-    """n batches of b SynthRoom clips of TRAIN_T frames at 224 through the
-    trainer's dataset, sampler and loader (phase 10's)."""
+# ---------------------------------------------------------------------------
+# phase 13: CroCo pretraining
+# ---------------------------------------------------------------------------
+
+# two published CroCo configurations at 224: the pretraining CLI's default
+# (croco/pretrain.py's --model: encoder 12 x 768 / 12 heads, decoder 8 x 512
+# / 16 heads, head dim 32, cosine positions) and the CroCo v2 ViT-L / Base
+# decoder that DUSt3R and Spann3R start from (RoPE100); the CLI's batch of
+# 64, --amp 1 (bf16), PRETRAIN_STEPS steps on one fixed batch and mask at a
+# constant PRETRAIN_LR
+PRETRAIN_MODELS = {
+    "CroCoNet()": "CroCoNet()",
+    "v2 ViT-L/Base": ("CroCoNet(enc_embed_dim=1024, enc_depth=24, "
+                      "enc_num_heads=16, dec_embed_dim=768, dec_depth=12, "
+                      "dec_num_heads=12, pos_embed='RoPE100')")}
+PRETRAIN_B, PRETRAIN_STEPS, PRETRAIN_LR = 64, 5, 1e-4
+# the CLI run: box-room pairs at 112 x 112 (the crops of 224 upsample
+# them), a short epoch of PRETRAIN_CLI_PAIRS pairs at batch 8
+PRETRAIN_CLI_PAIRS, PRETRAIN_CLI_B = 16, 8
+# the narrow FP32 configuration of the card-vs-CPU step: head dim 64 in the
+# encoder, 32 in the decoder, RoPE100 (K2 at both head dims, K3)
+PRETRAIN_PARITY_MODEL = ("CroCoNet(enc_embed_dim=256, enc_depth=2, "
+                         "enc_num_heads=4, dec_embed_dim=128, dec_depth=2, "
+                         "dec_num_heads=4, pos_embed='RoPE100')")
+
+
+def pretrain_launches(cfg):
+    """Kernel launches of one pretrain step: the encoder twice (image 1's
+    visible tokens, image 2 whole), then the decoder blocks, each with a
+    self and a cross attention; every attention one K2 forward and one
+    backward, and with RoPE one K3 on q and k each way; no K1."""
+    attn = 2 * cfg.enc.depth + 2 * cfg.dec.depth
+    rope = attn if cfg.enc.rope_base > 0 else 0
+    return {"rope2d": rope, "sdpa": attn, "memory_read": 0, "sdpa_bwd": attn,
+            "rope2d_bwd": rope}
+
+
+def phase_pretrain(records, card):
+    """(a), (b) each configuration of PRETRAIN_MODELS for PRETRAIN_STEPS
+    steps: launches of step 1 against pretrain_launches, finite losses, the
+    last below the first, the median step of steps 2-5, peak memory,
+    images/s; then the CLI under torchrun on generated box-room pairs, its
+    resume and the demo on its checkpoint (pretrain_cli); then the FP32
+    step card against CPU (pretrain_parity)."""
+    from spann3r_torch import config as C
+    from spann3r_torch import pretraining as P
+    from spann3r_torch.models import croco_pretrain as cp
+    from spann3r_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    for name, model_str in PRETRAIN_MODELS.items():
+        cfg, ratio = cp.parse_croco_model(model_str)
+        torch.cuda.empty_cache()
+        model = cp.build_croco(cfg, "cuda", torch.Generator().manual_seed(SEED))
+        n_params = sum(p.numel() for p in model.parameters())
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        img1, img2 = (torch.randn(PRETRAIN_B, *HW_224, 3, generator=g,
+                                  device="cuda") for _ in range(2))
+        mask = cp.random_mask(g, PRETRAIN_B, P.num_patches(cfg), ratio,
+                              "cuda")
+        opt = P.make_pretrain_optimizer(0.05)
+        state = opt.init(dict(model.named_parameters()))
+        step, _, _ = P.make_pretrain_step(ratio, C.BF16, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for i in range(PRETRAIN_STEPS):
+            torch.cuda.synchronize()
+            if i == 0:
+                _kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, loss = step(model, state, img1, img2, mask, PRETRAIN_LR)
+            losses.append(float(loss))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                counts = _kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = pretrain_launches(cfg)
+        med = statistics.median(walls[1:])
+        log(f"[pretrain] {name}: {n_params} params, enc {cfg.enc.depth} x "
+            f"{cfg.enc.dim}/{cfg.enc.num_heads} heads (head dim "
+            f"{cfg.enc.head_dim}), dec {cfg.dec.depth} x {cfg.dec.dim}/"
+            f"{cfg.dec.num_heads} (head dim {cfg.dec.head_dim}), "
+            f"{'RoPE100' if cfg.enc.rope_base > 0 else 'cosine'}, 224, "
+            f"B={PRETRAIN_B}, mask {ratio}, BF16: launches of step 1 {counts},"
+            f" expected {want}")
+        log(f"[pretrain] {name}: loss {[round(x, 4) for x in losses]} on one "
+            f"batch and mask at lr {PRETRAIN_LR}; step ms "
+            f"{[round(x, 1) for x in walls]}, median of steps 2-"
+            f"{PRETRAIN_STEPS} {med:.1f} ms ({PRETRAIN_B / med * 1e3:.1f} "
+            f"images/s); peak memory {peak / 2**30:.2f} GiB on {card}")
+        if counts != want:
+            raise AssertionError(f"pretrain {name}: launches {counts}, "
+                                 f"expected {want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"pretrain {name}: losses {losses}")
+        for k in counts:
+            records[k].setdefault("pretrain_launches", {})[name] = counts[k]
+        records["sdpa"].setdefault("pretrain", {})[name] = {
+            "step_ms": med, "images_per_s": PRETRAIN_B / med * 1e3,
+            "peak_gib": peak / 2**30, "params": n_params}
+        del model, state, step, opt, img1, img2
+    torch.cuda.empty_cache()
+    pretrain_cli()
+    pretrain_parity()
+    log(f"[pretrain] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def pretrain_cli():
+    """Box-room pairs from `python -m spann3r_torch.habitat_gen.scripts`,
+    their pairs.txt, then `python -m torch.distributed.run --nproc_per_node
+    1 -m spann3r_torch.pretrain` (the CLI's defaults: CroCoNet(), crop224 +
+    acolor, bf16) for one epoch at batch PRETRAIN_CLI_B, the same command
+    again to a second epoch (auto-resume), and `python -m
+    spann3r_torch.tools.croco_demo` on its checkpoint."""
+    import tempfile
+
+    from spann3r_torch.datasets.pairs import parse_and_cache_all_pairs
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run(cmd, what):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out = proc.communicate(timeout=DIST_WORKER_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.communicate()
+        lines = out.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} failed:\n" + "\n".join(lines[-60:]))
+        return lines, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="spann3r_pretrain_") as root:
+        scene = os.path.join(root, "habitat_release", "scene0")
+        _, sec = run([sys.executable, "-m", "spann3r_torch.habitat_gen.scripts",
+                      "--scene", "__boxroom__", "--output_dir", scene,
+                      "--views_count", "2", "--size", str(PRETRAIN_CLI_PAIRS),
+                      "--resolution", "112", "112", "--generate_depth", "0"],
+                     "habitat_gen.scripts")
+        parse_and_cache_all_pairs("habitat_release", root)
+        log(f"[pretrain] habitat_gen.scripts --scene __boxroom__: "
+            f"{PRETRAIN_CLI_PAIRS} pairs at 112x112 in {sec:.1f} s")
+        out = os.path.join(root, "out")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "1", "--master_port", str(_free_port()),
+               "-m", "spann3r_torch.pretrain", "--data_dir", root,
+               "--output_dir", out, "--batch_size", str(PRETRAIN_CLI_B),
+               "--epochs", "4", "--warmup_epochs", "1", "--print_freq", "1",
+               "--keep_freq", "0"]
+        steps = PRETRAIN_CLI_PAIRS // PRETRAIN_CLI_B
+        for epoch in (0, 1):
+            lines, sec = run(cmd + ["--max_epoch", str(epoch + 1)],
+                             f"torchrun pretrain epoch {epoch}")
+            done = [x for x in lines if x.startswith(f"E{epoch} it")]
+            resumed = any(x.startswith(f"auto-resumed from epoch {epoch}")
+                          for x in lines)
+            if len(done) != steps or (epoch == 1 and not resumed) or \
+                    not any("process 0/1" in x for x in lines):
+                raise AssertionError(f"torchrun pretrain epoch {epoch}:\n"
+                                     + "\n".join(lines[-40:]))
+            log(f"[pretrain] torchrun --nproc_per_node 1 -m "
+                f"spann3r_torch.pretrain (CroCoNet(), B={PRETRAIN_CLI_B}) "
+                f"epoch {epoch}{' (resumed)' if epoch else ''}: "
+                f"{[x.strip() for x in done]} in {sec:.1f} s")
+        png = os.path.join(out, "demo.png")
+        first = sorted(f for f in os.listdir(scene) if f.endswith("_1.jpeg"))[0]
+        _, sec = run([sys.executable, "-m", "spann3r_torch.tools.croco_demo",
+                      "--img1", os.path.join(scene, first), "--img2",
+                      os.path.join(scene, first.replace("_1.", "_2.")),
+                      "--ckpt", out, "--output", png], "croco_demo")
+        import PIL.Image
+        shape = np.asarray(PIL.Image.open(png)).shape
+        log(f"[pretrain] croco_demo on checkpoint-last: {shape} image in "
+            f"{sec:.1f} s")
+        if shape != (224, 4 * 224, 3):
+            raise AssertionError(f"croco_demo wrote a {shape} image")
+
+
+def pretrain_parity():
+    """One FP32 pretrain step's loss and gradients on the card (kernels)
+    and on the CPU (plain versions), the same weights, images and mask:
+    loss within E2E_TOL relative, every gradient within E2E_TOL of the
+    largest |grad|; launches on the card as pretrain_launches."""
+    from spann3r_torch import config as C
+    from spann3r_torch import pretraining as P
+    from spann3r_torch.models import croco_pretrain as cp
+    from spann3r_torch.ops import _kernels
+
+    cfg, ratio = cp.parse_croco_model(PRETRAIN_PARITY_MODEL)
+    g = torch.Generator().manual_seed(SEED + 40)
+    img1, img2 = (torch.randn(2, *HW_224, 3, generator=g) for _ in range(2))
+    mask = cp.random_mask(g, 2, P.num_patches(cfg), ratio)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = cp.build_croco(cfg, dev, torch.Generator().manual_seed(SEED))
+        if dev == "cuda":
+            _kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = P.pretrain_loss_and_grads(
+            model, img1.to(dev), img2.to(dev), mask.to(dev), ratio, C.FP32)
+        out[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                    time.perf_counter() - t0)
+        if dev == "cuda":
+            counts = _kernels.launch_counts()
+    (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    worst = max(gc, key=lambda k: float((gg[k] - gc[k]).abs().max()))
+    err = float((gg[worst] - gc[worst]).abs().max())
+    log(f"[parity] one FP32 pretrain step, {PRETRAIN_PARITY_MODEL} at 224, "
+        f"B=2 (head dims {cfg.enc.head_dim} / {cfg.dec.head_dim}): loss card "
+        f"{lg:.6f} CPU {lc:.6f}; grads max abs err {err:.3e} ({worst}) = "
+        f"{err / gmax:.3e} of max |grad| {gmax:.3e} (bound {E2E_TOL}); "
+        f"launches on the card {counts}, expected {pretrain_launches(cfg)}; "
+        f"{sg:.2f} s on the card, {sc:.2f} s on the CPU")
+    if counts != pretrain_launches(cfg):
+        raise AssertionError("pretrain parity: launches differ from the code")
+    if abs(lg - lc) > E2E_TOL * abs(lc) or err > E2E_TOL * gmax:
+        raise AssertionError("pretrain parity: card and CPU disagree")
+
+
+def train_batches(n, b=TRAIN_B, dataset=TRAIN_DATASET):
+    """n batches of b clips of TRAIN_T frames at 224 through the trainer's
+    dataset, sampler and loader (phase 10's: SynthRoom by default)."""
     from spann3r_torch.datasets import build_dataset, make_sampler
     from spann3r_torch.datasets.loader import DataLoader
 
-    ds = build_dataset(TRAIN_DATASET)
+    ds = build_dataset(dataset)
     ds.set_epoch(0)
     ds.set_ratio(1.0)
     sampler = make_sampler(ds, b)
@@ -2303,6 +2755,7 @@ def main():
     phase_dist(card, train_ms)
     phase_parity()
     phase_parity_train()
+    phase_pretrain(records, card)
     print(json.dumps({"kernels": [records[k] for k in (
         "rope2d", "sdpa", "memory_read", "sdpa_bwd", "rope2d_bwd")]}))
     print(card, flush=True)

@@ -1,4 +1,5 @@
-// Scaled dot-product attention, softmax(q k^T * scale) v, head dim 64.
+// Scaled dot-product attention, softmax(q k^T * scale) v, head dim 64 or
+// 32.
 //
 // Replaces the TPU kernel spann3r_tpu/ops/pallas_attention.py:_sdpa_kernel
 // (launched by _sdpa_pallas, public fused_sdpa). Numerics follow it and
@@ -47,6 +48,17 @@
 // Any N and M >= 1 (ragged edges are masked); every operand is read through
 // its batch, head and row strides with unit stride in Dh.
 //
+// Head dim 32 (the CroCo decoder's 512 / 16 heads) takes the same kernels,
+// instantiated at DH = 32. The fp32 path's rows are DH + 1 floats and each
+// thread owns DH / 16 output columns. The bf16 path keeps the 64-wide
+// swizzled tile (128-byte rows, the 128-byte swizzle of hopper.cuh): each
+// q, k and v tile is loaded with its columns DH..63 zero-filled (the loads
+// are masked by column, since those columns of a strided view hold the next
+// head), q k^T runs only the DH / 16 k-steps that hold data, and PV's
+// accumulator columns DH..63, zero, are never stored. So PV does twice the
+// products it needs; a 64-byte-swizzle tile with m64n32k16 would not
+// (PERF.md).
+//
 // For training, the forward also writes each row's logsumexp of the scaled
 // logits, fp32, natural-log units, (B, H, N) contiguous, which the backward
 // (sdpa_bwd.cu) reads to recompute the probabilities. A null lse pointer
@@ -62,10 +74,8 @@
 namespace spann3r {
 namespace {
 
-constexpr int DH = 64;        // head dim
 constexpr int TK = 32;        // keys per tile
 constexpr int NT = 256;       // threads per block
-constexpr int RP = DH + 1;    // padded q/k/v row
 constexpr int PP = TK + 1;    // padded probability row
 constexpr int R = 4;          // query rows per thread
 constexpr int TQ = 16 * R;    // query rows per block
@@ -74,9 +84,11 @@ struct Strides {
   long long b, h, n;
 };
 
+template <int DH>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long sn, int row0, int rows,
                                           int limit) {
+  constexpr int RP = DH + 1;   // padded q/k/v row
   for (int e = threadIdx.x; e < rows * DH; e += NT) {
     const int r = e / DH, d = e % DH;
     const int gr = row0 + r;
@@ -85,9 +97,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 }
 
 // s[a][c] = scale * q[ty + 16a] . k[tx + 16c], masked to -inf past M
+template <int DH>
 __device__ __forceinline__ void tile_scores(const float* qs, const float* ks,
                                             int ty, int tx, int k0, int M,
                                             float scale, float s[R][2]) {
+  constexpr int RP = DH + 1;   // padded q/k/v row
 #pragma unroll
   for (int a = 0; a < R; ++a) {
     s[a][0] = 0.f;
@@ -131,11 +145,14 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
+template <int DH>
 __global__ void __launch_bounds__(NT)
 sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 float* __restrict__ lse, int H, int N, int M, Strides qs_,
                 Strides ks_, Strides vs_, Strides os_, float scale) {
+  constexpr int RP = DH + 1;   // padded q/k/v row
+  constexpr int DC = DH / 16;   // output columns a thread owns
   __shared__ float qs[TQ * RP];
   __shared__ float kv[TK * RP];
   __shared__ float ps[TQ * PP];
@@ -148,7 +165,7 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * vs_.b + h * vs_.h;
   float* ob = o + b * os_.b + h * os_.h;
 
-  load_rows(qs, qb, qs_.n, q0, TQ, N);
+  load_rows<DH>(qs, qb, qs_.n, q0, TQ, N);
   const int ntiles = (M + TK - 1) / TK;
 
   // sweep 1: online row max and sum-exp
@@ -161,10 +178,10 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * TK;
     __syncthreads();
-    load_rows(kv, kb, ks_.n, k0, TK, M);
+    load_rows<DH>(kv, kb, ks_.n, k0, TK, M);
     __syncthreads();
     float s[R][2];
-    tile_scores(qs, kv, ty, tx, k0, M, scale, s);
+    tile_scores<DH>(qs, kv, ty, tx, k0, M, scale, s);
 #pragma unroll
     for (int a = 0; a < R; ++a) {
       const float m_new = fmaxf(m_run[a], row_max16(fmaxf(s[a][0], s[a][1])));
@@ -175,19 +192,19 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // sweep 2: normalised probabilities times v
-  float acc[R][4];
+  float acc[R][DC];
 #pragma unroll
   for (int a = 0; a < R; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * TK;
     __syncthreads();
-    load_rows(kv, kb, ks_.n, k0, TK, M);
+    load_rows<DH>(kv, kb, ks_.n, k0, TK, M);
     __syncthreads();
     float s[R][2];
-    tile_scores(qs, kv, ty, tx, k0, M, scale, s);
+    tile_scores<DH>(qs, kv, ty, tx, k0, M, scale, s);
 #pragma unroll
     for (int a = 0; a < R; ++a)
 #pragma unroll
@@ -196,18 +213,18 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         ps[(ty + 16 * a) * PP + tx + 16 * c] = p;
       }
     __syncthreads();
-    load_rows(kv, vb, vs_.n, k0, TK, M);
+    load_rows<DH>(kv, vb, vs_.n, k0, TK, M);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < TK; ++j) {
-      float vv[4];
+      float vv[DC];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) vv[c] = kv[j * RP + tx + 16 * c];
+      for (int c = 0; c < DC; ++c) vv[c] = kv[j * RP + tx + 16 * c];
 #pragma unroll
       for (int a = 0; a < R; ++a) {
         const float p = ps[(ty + 16 * a) * PP + j];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(p, vv[c], acc[a][c]);
+        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(p, vv[c], acc[a][c]);
       }
     }
   }
@@ -217,7 +234,7 @@ sdpa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + ty + 16 * a;
     if (r >= N) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) ob[r * os_.n + tx + 16 * c] = acc[a][c];
+    for (int c = 0; c < DC; ++c) ob[r * os_.n + tx + 16 * c] = acc[a][c];
     if (lse != nullptr && tx == 0)
       lse[(long long)bh * N + r] = m_run[a] + logf(z_run[a]);
   }
@@ -241,6 +258,7 @@ constexpr size_t kWgmmaSmem = 1024 + hopper::kTileBytes * (1 + 2 * STAGES);
 // rounded to bf16 in registers, is repacked from the
 // accumulator layout into the A fragment of the PV wgmma (A from
 // registers, V from shared memory), O in fp32 registers.
+template <int DH>
 __global__ void __launch_bounds__(128)
 sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -267,14 +285,15 @@ sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto prefetch = [&](int j) {
     if (j < steps) {
       unsigned char* st = ring + (j % STAGES) * 2 * kTileBytes;
-      load_tile(st, kb, ks_.n, first_key(j), M, vk, t, 128);
+      load_tile(st, kb, ks_.n, first_key(j), M, vk, t, 128, 0, DH);
       if (j >= ntiles)
-        load_tile(st + kTileBytes, vb, vs_.n, first_key(j), M, vv, t, 128);
+        load_tile(st + kTileBytes, vb, vs_.n, first_key(j), M, vv, t, 128, 0,
+                  DH);
     }
     cp_async_commit();
   };
 
-  load_tile(qsm, qb, qs_.n, q0, N, vq, t, 128);
+  load_tile(qsm, qb, qs_.n, q0, N, vq, t, 128, 0, DH);
   cp_async_commit();
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) prefetch(j);
@@ -300,7 +319,7 @@ sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)   // the k-steps that hold data
       wgmma_ss<0>(s, desc(qsm, kk * 32), desc(st, kk * 32), kk);
     wgmma_commit();
     wgmma_wait<0>();
@@ -361,7 +380,7 @@ sdpa_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 32; i += 4) {
+  for (int i = 0; i < DH / 2; i += 4) {   // columns < DH
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = q0 + r0 + 8 * hr;
@@ -387,26 +406,28 @@ __host__ __device__ inline bool rows_aligned16(const void* p, Strides st) {
          st.h % 8 == 0 && st.n % 8 == 0;
 }
 
+template <int DH>
 void launch_f32(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int H, int N, int M, Strides sq, Strides sk,
                 Strides sv, Strides so, float scale, cudaStream_t stream) {
   dim3 grid((N + TQ - 1) / TQ, B * H);
-  sdpa_f32_kernel<<<grid, NT, 0, stream>>>(
+  sdpa_f32_kernel<DH><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, M, sq,
       sk, sv, so, scale);
 }
 
+template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int H, int N, int M, Strides sq,
                         Strides sk, Strides sv, Strides so, float scale,
                         cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      sdpa_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sdpa_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kWgmmaSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + 63) / 64, B * H);
-  sdpa_wgmma_kernel<<<grid, 128, kWgmmaSmem, stream>>>(
+  sdpa_wgmma_kernel<DH><<<grid, 128, kWgmmaSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, N, M, sq, sk,
       sv, so, scale, rows_aligned16(q, sq), rows_aligned16(k, sk),
@@ -414,11 +435,27 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaSuccess;
 }
 
+template <int DH>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int B, int H, int N, int M,
+                   Strides sq, Strides sk, Strides sv, Strides so, float scale,
+                   cudaStream_t stream) {
+  if (dtype == kFloat32) {
+    launch_f32<DH>(q, k, v, o, lse, B, H, N, M, sq, sk, sv, so, scale, stream);
+    return cudaSuccess;
+  }
+  if (dtype == kBFloat16)
+    return launch_bf16<DH>(q, k, v, o, lse, B, H, N, M, sq, sk, sv, so, scale,
+                           stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace spann3r
 
 // q: (B, H, N, D), k and v: (B, H, M, D), out: (B, H, N, D); each with
-// element strides (batch, head, row) and unit stride in D. D must be 64.
+// element strides (batch, head, row) and unit stride in D. D must be 64 or
+// 32.
 // lse: null, or fp32 (B, H, N) contiguous for each row's logsumexp.
 extern "C" int spann3r_sdpa(const void* q, const void* k, const void* v,
                             void* out, void* lse, int dtype, int B, int H,
@@ -429,20 +466,17 @@ extern "C" int spann3r_sdpa(const void* q, const void* k, const void* v,
                             long long vsn, long long osb, long long osh,
                             long long osn, float scale, void* stream) {
   using namespace spann3r;
-  if (D != DH || N < 1 || M < 1 || B * H < 1 || B * H > 65535)
+  if ((D != 64 && D != 32) || N < 1 || M < 1 || B * H < 1 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsh, qsn}, sk{ksb, ksh, ksn}, sv{vsb, vsh, vsn},
       so{osb, osh, osn};
-  if (dtype == kFloat32) {
-    launch_f32(q, k, v, out, static_cast<float*>(lse), B, H, N, M, sq, sk,
-               sv, so, scale, s);
-  } else if (dtype == kBFloat16) {
-    const cudaError_t err = launch_bf16(q, k, v, out, static_cast<float*>(lse),
-                                        B, H, N, M, sq, sk, sv, so, scale, s);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  float* l = static_cast<float*>(lse);
+  const cudaError_t err =
+      D == 64 ? launch<64>(dtype, q, k, v, out, l, B, H, N, M, sq, sk, sv, so,
+                           scale, s)
+              : launch<32>(dtype, q, k, v, out, l, B, H, N, M, sq, sk, sv, so,
+                           scale, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // Backward of scaled dot-product attention, softmax(q k^T * scale) v, head
-// dim 64: dq, dk and dv from q, k, v, the output's cotangent dO and the
+// dim 64 or 32: dq, dk and dv from q, k, v, the output's cotangent dO and the
 // forward's per-row logsumexp (sdpa.cu writes it when a gradient is wanted).
 //
 // Replaces the backward of the TPU kernel
@@ -70,6 +70,13 @@
 //     sweeps the key tiles (32 keys) once for D and again for dq; pass 2,
 //     one block per (batch*head, 64 key rows), sweeps the query tiles for
 //     dv and dk.
+// Head dim 32 (the CroCo decoder's) takes the same kernels at DH = 32, as
+// the forward does (sdpa.cu): the fp32 path's rows are DH + 1 floats and a
+// thread owns DH / 16 output columns; the bf16 path keeps the 64-wide
+// swizzled tiles with columns DH..63 loaded as zeros (the loads masked by
+// column), runs S = q k^T and dP = dO v^T over the DH / 16 k-steps that
+// hold data, and stores only the accumulator columns below DH of dq, dk
+// and dv, whose products (64 wide) do twice the work they need.
 // No atomics: every output element has one owner, so two launches give
 // the same bits. Any N, M >= 1 (ragged tiles are masked); q, k, v, dO and
 // the three outputs are read and written through their batch, head and
@@ -84,9 +91,7 @@
 namespace spann3r {
 namespace {
 
-constexpr int DH = 64;        // head dim
 constexpr int NT = 256;       // threads per block
-constexpr int RP = DH + 1;    // padded row of a q/k/v/dO tile
 constexpr int TR = 64;        // rows a block owns (queries, then keys)
 constexpr int TC = 32;        // rows a sweep streams per tile
 constexpr int CP = TC + 1;    // padded row of a P / dS tile
@@ -98,9 +103,11 @@ struct Strides {
 // --- fp32 path: CUDA cores -------------------------------------------------
 using T = float;
 
+template <int DH>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           long long sn, int row0, int rows,
                                           int limit) {
+  constexpr int RP = DH + 1;   // padded row of a q/k/v/dO tile
   for (int e = threadIdx.x; e < rows * DH; e += NT) {
     const int r = e / DH, d = e % DH;
     const int gr = row0 + r;
@@ -109,8 +116,10 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 }
 
 // out[a][c] = a_rows[ty + 16a] . b_rows[tx + 16c] over Dh
+template <int DH>
 __device__ __forceinline__ void dots(const float* a_rows, const float* b_rows,
                                      int ty, int tx, float out[4][2]) {
+  constexpr int RP = DH + 1;
 #pragma unroll
   for (int a = 0; a < 4; ++a) out[a][0] = out[a][1] = 0.f;
 #pragma unroll 8
@@ -135,11 +144,16 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-constexpr size_t kDqSmem = sizeof(float) * (2 * TR * RP + 2 * TC * RP + TR * CP);
-constexpr size_t kDkvSmem =
-    sizeof(float) * (2 * TR * RP + 2 * TC * RP + 2 * TR * CP + 2 * TC);
+template <int DH>
+constexpr size_t kDqSmem =
+    sizeof(float) * (2 * TR * (DH + 1) + 2 * TC * (DH + 1) + TR * CP);
+template <int DH>
+constexpr size_t kDkvSmem = sizeof(float) * (2 * TR * (DH + 1) +
+                                             2 * TC * (DH + 1) + 2 * TR * CP +
+                                             2 * TC);
 
 // pass 1: D and dq for 64 query rows of one (batch, head)
+template <int DH>
 __global__ void __launch_bounds__(NT)
 sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
@@ -147,6 +161,8 @@ sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    T* __restrict__ dq, int H, int N, int M, Strides sq,
                    Strides sk, Strides sv, Strides sdo, Strides sdq,
                    float scale) {
+  constexpr int RP = DH + 1;
+  constexpr int DC = DH / 16;    // output columns a thread owns
   extern __shared__ float smem[];
   float* qs = smem;              // TR x RP
   float* dos = qs + TR * RP;     // TR x RP
@@ -163,8 +179,8 @@ sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dob = dout + b * sdo.b + h * sdo.h;
   T* dqb = dq + b * sdq.b + h * sdq.h;
 
-  load_rows(qs, qb, sq.n, q0, TR, N);
-  load_rows(dos, dob, sdo.n, q0, TR, N);
+  load_rows<DH>(qs, qb, sq.n, q0, TR, N);
+  load_rows<DH>(dos, dob, sdo.n, q0, TR, N);
   float l[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -178,12 +194,12 @@ sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * TC;
     __syncthreads();
-    load_rows(ks, kb, sk.n, k0, TC, M);
-    load_rows(vs, vb, sv.n, k0, TC, M);
+    load_rows<DH>(ks, kb, sk.n, k0, TC, M);
+    load_rows<DH>(vs, vb, sv.n, k0, TC, M);
     __syncthreads();
     float s[4][2], dp[4][2];
-    dots(qs, ks, ty, tx, s);
-    dots(dos, vs, ty, tx, dp);
+    dots<DH>(qs, ks, ty, tx, s);
+    dots<DH>(dos, vs, ty, tx, dp);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -197,20 +213,20 @@ sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < 4; ++a) dsum[a] = row_sum16(dsum[a]);
 
   // sweep 2: dS = P (dP - D) * scale, dq += dS k
-  float acc[4][4];
+  float acc[4][DC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * TC;
     __syncthreads();
-    load_rows(ks, kb, sk.n, k0, TC, M);
-    load_rows(vs, vb, sv.n, k0, TC, M);
+    load_rows<DH>(ks, kb, sk.n, k0, TC, M);
+    load_rows<DH>(vs, vb, sv.n, k0, TC, M);
     __syncthreads();
     float s[4][2], dp[4][2];
-    dots(qs, ks, ty, tx, s);
-    dots(dos, vs, ty, tx, dp);
+    dots<DH>(qs, ks, ty, tx, s);
+    dots<DH>(dos, vs, ty, tx, dp);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -222,14 +238,14 @@ sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < TC; ++j) {
-      float kv[4];
+      float kv[DC];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = ks[j * RP + tx + 16 * c];
+      for (int c = 0; c < DC; ++c) kv[c] = ks[j * RP + tx + 16 * c];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const float ds = dss[(ty + 16 * a) * CP + j];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(ds, kv[c], acc[a][c]);
+        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(ds, kv[c], acc[a][c]);
       }
     }
   }
@@ -239,13 +255,14 @@ sdpa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * a;
     if (r >= N) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < DC; ++c)
       dqb[r * sdq.n + tx + 16 * c] = from_f<T>(acc[a][c]);
     if (tx == 0) drow[(long long)bh * N + r] = dsum[a];
   }
 }
 
 // pass 2: dk and dv for 64 key rows of one (batch, head)
+template <int DH>
 __global__ void __launch_bounds__(NT)
 sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -254,6 +271,8 @@ sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dv, int H, int N, int M, Strides sq,
                     Strides sk, Strides sv, Strides sdo, Strides sdk,
                     Strides sdv, float scale) {
+  constexpr int RP = DH + 1;
+  constexpr int DC = DH / 16;
   extern __shared__ float smem[];
   float* ks = smem;              // TR x RP: the block's keys
   float* vs = ks + TR * RP;      // TR x RP
@@ -274,20 +293,20 @@ sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dkb = dk + b * sdk.b + h * sdk.h;
   T* dvb = dv + b * sdv.b + h * sdv.h;
 
-  load_rows(ks, kb, sk.n, k0, TR, M);
-  load_rows(vs, vb, sv.n, k0, TR, M);
-  float adk[4][4], adv[4][4];
+  load_rows<DH>(ks, kb, sk.n, k0, TR, M);
+  load_rows<DH>(vs, vb, sv.n, k0, TR, M);
+  float adk[4][DC], adv[4][DC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) adk[a][c] = adv[a][c] = 0.f;
+    for (int c = 0; c < DC; ++c) adk[a][c] = adv[a][c] = 0.f;
 
   const int ntiles = (N + TC - 1) / TC;
   for (int t = 0; t < ntiles; ++t) {
     const int n0 = t * TC;
     __syncthreads();
-    load_rows(qs, qb, sq.n, n0, TC, N);
-    load_rows(dos, dob, sdo.n, n0, TC, N);
+    load_rows<DH>(qs, qb, sq.n, n0, TC, N);
+    load_rows<DH>(dos, dob, sdo.n, n0, TC, N);
     if (tid < TC) {
       const int r = n0 + tid;
       ls[tid] = r < N ? lse[(long long)bh * N + r] : 0.f;
@@ -295,8 +314,8 @@ sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     float s[4][2], dp[4][2];
-    dots(ks, qs, ty, tx, s);     // s[a][c]: key ty + 16a, query tx + 16c
-    dots(vs, dos, ty, tx, dp);
+    dots<DH>(ks, qs, ty, tx, s);   // s[a][c]: key ty + 16a, query tx + 16c
+    dots<DH>(vs, dos, ty, tx, dp);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -310,9 +329,9 @@ sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < TC; ++j) {
-      float dov[4], qv[4];
+      float dov[DC], qv[DC];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < DC; ++c) {
         dov[c] = dos[j * RP + tx + 16 * c];
         qv[c] = qs[j * RP + tx + 16 * c];
       }
@@ -321,7 +340,7 @@ sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = ps[(ty + 16 * a) * CP + j];
         const float ds = dss[(ty + 16 * a) * CP + j];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < DC; ++c) {
           adv[a][c] = fmaf(p, dov[c], adv[a][c]);
           adk[a][c] = fmaf(ds, qv[c], adk[a][c]);
         }
@@ -334,13 +353,14 @@ sdpa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = k0 + ty + 16 * a;
     if (r >= M) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < DC; ++c) {
       dkb[r * sdk.n + tx + 16 * c] = from_f<T>(adk[a][c]);
       dvb[r * sdv.n + tx + 16 * c] = from_f<T>(adv[a][c]);
     }
   }
 }
 
+template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, float* drow,
                        void* dq, void* dk, void* dv, int B, int H, int N,
@@ -348,24 +368,25 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        Strides sdq, Strides sdk, Strides sdv, float scale,
                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      sdpa_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmem);
+      sdpa_bwd_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kDqSmem<DH>);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sdpa_bwd_dkv_kernel,
+    err = cudaFuncSetAttribute(sdpa_bwd_dkv_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kDkvSmem);
+                               (int)kDkvSmem<DH>);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  sdpa_bwd_dq_kernel<<<dim3((N + TR - 1) / TR, B * H), NT, kDqSmem, stream>>>(
+  sdpa_bwd_dq_kernel<DH><<<dim3((N + TR - 1) / TR, B * H), NT, kDqSmem<DH>,
+                           stream>>>(
       qt, kt, vt, dot, lse, drow, static_cast<T*>(dq), H, N, M, sq, sk, sv,
       sdo, sdq, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sdpa_bwd_dkv_kernel<<<dim3((M + TR - 1) / TR, B * H), NT, kDkvSmem,
-                        stream>>>(qt, kt, vt, dot, lse, drow,
+  sdpa_bwd_dkv_kernel<DH><<<dim3((M + TR - 1) / TR, B * H), NT, kDkvSmem<DH>,
+                            stream>>>(qt, kt, vt, dot, lse, drow,
                                   static_cast<T*>(dk), static_cast<T*>(dv), H,
                                   N, M, sq, sk, sv, sdo, sdk, sdv, scale);
   return cudaSuccess;
@@ -392,12 +413,14 @@ struct Args {
   bool vq, vk, vv, vdo;   // rows 16-byte aligned: cp.async
 };
 
+// the accumulator's columns below DH, rows below `limit`
+template <int DH>
 __device__ __forceinline__ void store_rows(bf16* dst, long long ld, int row0,
                                           int limit, const float (&acc)[32],
                                           int t) {
   using namespace hopper;
 #pragma unroll
-  for (int i = 0; i < 32; i += 4)
+  for (int i = 0; i < DH / 2; i += 4)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = row0 + acc_row(t, 0) + 8 * hr;
@@ -407,8 +430,9 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ld, int row0,
     }
 }
 
-// d = a b^T over the 64 columns of two K-major tiles (wgmma, both operands
-// in shared memory), committed as one group
+// d = a b^T over the first DH columns of two K-major tiles (wgmma, both
+// operands in shared memory), committed as one group
+template <int DH>
 __device__ __forceinline__ void product_nt(float (&d)[32],
                                            const unsigned char* a,
                                            const unsigned char* b) {
@@ -416,7 +440,7 @@ __device__ __forceinline__ void product_nt(float (&d)[32],
   fence_regs(d);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < DH / 16; ++kk)
     wgmma_ss<0>(d, desc(a, kk * 32), desc(b, kk * 32), kk);
   wgmma_commit();
 }
@@ -452,7 +476,7 @@ __device__ __forceinline__ void to_frag(uint32_t (&a)[4][4],
 // streams the other side's two ((k, v) or (q, dO)) through the ring. Three
 // blocks share an SM (at most 168 registers a thread; 68 KB of shared
 // memory each).
-template <bool ROW_TERM>
+template <bool ROW_TERM, int DH>
 __global__ void __launch_bounds__(128, 3)
     sdpa_bwd_wgmma_kernel(const Args a) {
   using namespace hopper;
@@ -489,8 +513,9 @@ __global__ void __launch_bounds__(128, 3)
   auto prefetch = [&](int j) {
     if (j < steps) {
       unsigned char* st = ring + (j % STAGES) * 2 * kTileBytes;
-      load_tile(st, su, lsu, j * 64, streamed_rows, vsu, t, 128);
-      load_tile(st + kTileBytes, sw, lsw, j * 64, streamed_rows, vsw, t, 128);
+      load_tile(st, su, lsu, j * 64, streamed_rows, vsu, t, 128, 0, DH);
+      load_tile(st + kTileBytes, sw, lsw, j * 64, streamed_rows, vsw, t, 128,
+                0, DH);
       if (key_owned) {   // the streamed query rows' lse (t < 64) and D
         const int row = j * 64 + (t & 63);
         const bool ok = row < a.N;
@@ -501,8 +526,8 @@ __global__ void __launch_bounds__(128, 3)
     cp_async_commit();
   };
 
-  load_tile(own, ox, lox, row0, own_rows, vox, t, 128);
-  load_tile(own + kTileBytes, oy, loy, row0, own_rows, voy, t, 128);
+  load_tile(own, ox, lox, row0, own_rows, vox, t, 128, 0, DH);
+  load_tile(own + kTileBytes, oy, loy, row0, own_rows, voy, t, 128, 0, DH);
   cp_async_commit();
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) prefetch(j);
@@ -538,8 +563,8 @@ __global__ void __launch_bounds__(128, 3)
     const int c0 = j * 64;
     const bool ragged = c0 + 64 > streamed_rows;
 
-    product_nt(s, own, u);
-    product_nt(dp, own + kTileBytes, w);
+    product_nt<DH>(s, own, u);
+    product_nt<DH>(dp, own + kTileBytes, w);
     wgmma_wait<1>();
     fence_regs(s);
     // P, 0 past the streamed side's last row
@@ -592,10 +617,12 @@ __global__ void __launch_bounds__(128, 3)
       if ((t & 3) == 0 && row < a.N) drb[row] = sum;
     }
   } else if (key_owned) {
-    store_rows(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.n, row0, a.M, acc, t);
-    store_rows(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.n, row0, a.M, acc_v, t);
+    store_rows<DH>(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.n, row0, a.M, acc,
+                   t);
+    store_rows<DH>(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.n, row0, a.M,
+                   acc_v, t);
   } else {
-    store_rows(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.n, row0, a.N, acc, t);
+    store_rows<DH>(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.n, row0, a.N, acc, t);
   }
 }
 
@@ -604,22 +631,23 @@ __host__ __device__ inline bool rows_aligned16(const void* p, Strides st) {
          st.h % 8 == 0 && st.n % 8 == 0;
 }
 
+template <int DH>
 cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      sdpa_bwd_wgmma_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kWgmmaSmem);
+      sdpa_bwd_wgmma_kernel<true, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgmmaSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sdpa_bwd_wgmma_kernel<false>,
+    err = cudaFuncSetAttribute(sdpa_bwd_wgmma_kernel<false, DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kWgmmaSmem);
   if (err != cudaSuccess) return err;
   const int nqt = (a.N + 63) / 64, nkt = (a.M + 63) / 64;
-  sdpa_bwd_wgmma_kernel<true><<<dim3(nqt, B * a.H), 128, kWgmmaSmem,
-                                stream>>>(a);
+  sdpa_bwd_wgmma_kernel<true, DH><<<dim3(nqt, B * a.H), 128, kWgmmaSmem,
+                                    stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sdpa_bwd_wgmma_kernel<false><<<dim3(nqt + nkt, B * a.H), 128, kWgmmaSmem,
-                                 stream>>>(a);
+  sdpa_bwd_wgmma_kernel<false, DH><<<dim3(nqt + nkt, B * a.H), 128,
+                                     kWgmmaSmem, stream>>>(a);
   return cudaSuccess;
 }
 
@@ -627,7 +655,7 @@ cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
 }  // namespace spann3r
 
 // q, dO, dq: (B, H, N, D); k, v, dk, dv: (B, H, M, D); each with element
-// strides (batch, head, row) and unit stride in D. D must be 64. lse: the
+// strides (batch, head, row) and unit stride in D. D must be 64 or 32. lse: the
 // forward's fp32 (B, H, N) contiguous logsumexp; drow: fp32 (B, H, N)
 // contiguous scratch that receives the row term D.
 extern "C" int spann3r_sdpa_bwd(
@@ -640,7 +668,7 @@ extern "C" int spann3r_sdpa_bwd(
     long long dksb, long long dksh, long long dksn, long long dvsb,
     long long dvsh, long long dvsn, float scale, void* stream) {
   using namespace spann3r;
-  if (D != DH || N < 1 || M < 1 || B * H < 1 || B * H > 65535)
+  if ((D != 64 && D != 32) || N < 1 || M < 1 || B * H < 1 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsh, qsn}, sk{ksb, ksh, ksn}, sv{vsb, vsh, vsn},
@@ -650,8 +678,10 @@ extern "C" int spann3r_sdpa_bwd(
   float* dr = static_cast<float*>(drow);
   cudaError_t err;
   if (dtype == kFloat32) {
-    err = launch_f32(q, k, v, dout, l, dr, dq, dk, dv, B, H, N, M, sq, sk, sv,
-                     sdo, sdq, sdk, sdv, scale, s);
+    err = D == 64 ? launch_f32<64>(q, k, v, dout, l, dr, dq, dk, dv, B, H, N,
+                                   M, sq, sk, sv, sdo, sdq, sdk, sdv, scale, s)
+                  : launch_f32<32>(q, k, v, dout, l, dr, dq, dk, dv, B, H, N,
+                                   M, sq, sk, sv, sdo, sdq, sdk, sdv, scale, s);
   } else if (dtype == kBFloat16) {
     const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -659,7 +689,7 @@ extern "C" int spann3r_sdpa_bwd(
                  static_cast<bf16*>(dv), H, N, M, sq, sk, sv, sdo, sdq, sdk,
                  sdv, scale, rows_aligned16(q, sq), rows_aligned16(k, sk),
                  rows_aligned16(v, sv), rows_aligned16(dout, sdo)};
-    err = launch_bf16(a, B, s);
+    err = D == 64 ? launch_bf16<64>(a, B, s) : launch_bf16<32>(a, B, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

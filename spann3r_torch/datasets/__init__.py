@@ -1,29 +1,36 @@
-"""The datasets the port has: image folders (`Demo`), 7-Scenes, NRGBD /
-Replica, DTU and the procedural `SynthRoom`, all numpy views in the
-reference's contract, collated by `loader.collate_views`; and the dataset
-registry with its safe expression parser and the training sampler.
+"""The datasets of the port: image folders (`Demo`), 7-Scenes, NRGBD /
+Replica and DTU (evaluation), the training sets that read files from disk
+(ScanNet, ScanNet++, ARKitScenes, BlendedMVS, CO3D, Habitat: the
+reference's training recipe), and the procedural `SynthRoom`, all numpy
+views in the reference's contract, collated by `loader.collate_views`; and
+the dataset registry with its safe expression parser and the training
+sampler. The CroCo pretraining pairs are `pairs.PairsDataset`.
 
 The reference builds dataset mixtures by `eval()`ing strings like
     "10000 @ Co3d(split='train', ROOT=..., resolution=224) + 10000 @ ..."
 (ref spann3r/datasets/__init__.py:21-22, training.py:289-295). The JAX
 package parses the expression with `ast` against a registry instead, with
-no arbitrary code execution, and so does the port. The registry holds the
-datasets the port has; the training datasets that read files from disk
-(ARKit, BlendedMVS, CO3D, Habitat, ScanNet, ScanNet++) join it as they are
-copied.
+no arbitrary code execution, and so does the port, against the same
+registry.
 """
 from __future__ import annotations
 
 import ast
 from typing import Any, Dict
 
+from .arkit import ArkitScene
 from .base import (BaseManyViewDataset, BaseViewDataset, CatDataset,  # noqa: F401
                    ColorJitter, EasyDataset, MulDataset, ResizedDataset,
                    img_norm)
+from .blendedmvs import BlendMVS
+from .co3d import Co3d
 from .demo import Demo
 from .dtu import DTU
+from .habitat import habitat
 from .nrgbd import NRGBD, Replica
 from .sampler import BatchedRandomSampler
+from .scannet import Scannet
+from .scannetpp import Scannetpp
 from .seven_scenes import SevenScenes
 from .synth import SynthRoom
 
@@ -33,6 +40,12 @@ REGISTRY: Dict[str, Any] = {
     "NRGBD": NRGBD,
     "Replica": Replica,
     "DTU": DTU,
+    "Scannet": Scannet,
+    "Scannetpp": Scannetpp,
+    "ArkitScene": ArkitScene,
+    "BlendMVS": BlendMVS,
+    "Co3d": Co3d,
+    "habitat": habitat,
     "SynthRoom": SynthRoom,
 }
 

@@ -83,7 +83,7 @@ class HabitatSimBackend(SceneBackend):
             settings.set_defaults()
             self.sim.recompute_navmesh(self.sim.pathfinder, settings, True)
         if not self.sim.pathfinder.is_loaded:
-            from . import NoNavigableSpaceError
+            from .generator import NoNavigableSpaceError
             raise NoNavigableSpaceError(
                 f"No navigable location (scene: {scene} "
                 f"-- navmesh: {navmesh})")

@@ -4,8 +4,8 @@
 normalised probabilities cast to v's dtype, and PV accumulated in fp32
 (the JAX package's numerics). It dispatches on the device of its inputs:
 a CPU tensor takes the plain PyTorch version, a CUDA tensor the CUDA
-kernel (`csrc/sdpa.cu`, head dim 64; bf16 on the tensor cores through
-wgmma), which reads q/k/v through their
+kernel (`csrc/sdpa.cu`, head dim 64 or 32; bf16 on the tensor cores
+through wgmma), which reads q/k/v through their
 strides and writes its output in the layout that merging the heads back
 needs, so neither side copies.
 
@@ -61,6 +61,16 @@ def sdpa_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+# the head dims the CUDA kernels take: 64 (ViT-L, ViT-B) and 32 (the CroCo
+# decoder, 512 wide with 16 heads)
+KERNEL_HEAD_DIMS = (32, 64)
+
+
+def _check_head_dim(d: int) -> None:
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the SDPA kernels take head dim 32 or 64, got {d}")
+
+
 def _heads_view(b: int, h: int, n: int, d: int, like: torch.Tensor
                 ) -> torch.Tensor:
     """A new (B, H, N, Dh) view of a (B, N, H, Dh) buffer: the layout that
@@ -80,8 +90,7 @@ def sdpa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, n, d = q.shape
     m = k.shape[2]
     dev = q.device
-    if d != 64:
-        raise ValueError(f"the SDPA kernel takes head dim 64, got {d}")
+    _check_head_dim(d)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _kernels.require(t, name, dtype=q.dtype, device=dev,
                          last_contiguous=True)
@@ -113,8 +122,7 @@ def sdpa_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, n, d = q.shape
     m = k.shape[2]
     dev = q.device
-    if d != 64:
-        raise ValueError(f"the SDPA kernel takes head dim 64, got {d}")
+    _check_head_dim(d)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout")):

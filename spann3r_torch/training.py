@@ -181,6 +181,42 @@ def decay_mask(name: str, shape) -> bool:
     return len(shape) > 1 or name.startswith(_STACKED)
 
 
+def layer_lr_scales(names, enc_depth: int, dec_depth: int,
+                    layer_decay: float) -> Dict[str, float]:
+    """{parameter name: LR multiplier}, the reference's layer-decay param
+    groups (croco/utils/misc.py:385-460; the JAX package's training.py
+    layer_lr_scales): lr_scale = layer_decay ** (num_layers + 1 - layer_id)
+    with layer_id 0 for the patch and position embeddings and the tokens,
+    i + 1 for encoder block i, enc_depth for decoder_embed and enc_norm,
+    enc_depth + i + 1 for decoder block i, num_layers for dec_norm and
+    num_layers + 1 for the heads (misc.py:385-402). The port holds one
+    tensor per block, so each parameter gets its block's scalar, which
+    multiplies its update."""
+    if not (layer_decay == 1.0 or 0.0 < layer_decay < 1.0):
+        raise ValueError(f"layer_decay {layer_decay} is not in (0, 1]")
+    num_layers = enc_depth + dec_depth
+
+    def layer_id(name: str) -> int:
+        top = name.split(".")[0]
+        if top in ("patch_embed", "pos_embed", "cls_token", "mask_token",
+                   "global_tokens"):
+            return 0
+        if top == "enc_blocks":
+            return int(name.split(".")[1]) + 1
+        if top in ("decoder_embed", "enc_norm"):
+            return enc_depth
+        if top == "dec_blocks":
+            return enc_depth + int(name.split(".")[1]) + 1
+        if top == "dec_norm":
+            return num_layers
+        if top == "prediction_head" or top.startswith("head"):
+            return num_layers + 1
+        # the reference raises too (misc.py:402)
+        raise NotImplementedError(f"layer-decay id for {name!r}")
+
+    return {n: layer_decay ** (num_layers + 1 - layer_id(n)) for n in names}
+
+
 def global_norm_f32(tensors) -> torch.Tensor:
     """Global L2 norm with fp32 accumulation whatever the tensors' dtype (a
     bf16 sum of squares over ~700M gradients is too coarse for the clip).
@@ -200,10 +236,15 @@ class Optimizer(NamedTuple):
 
 
 def make_optimizer(weight_decay: float,
-                   moment_dtype: Optional[torch.dtype] = None) -> Optimizer:
-    """AdamW(0.9, 0.95), eps 1e-8, with a global-norm clip at 1.0 in fp32,
-    bias correction and decoupled decay on tensors of 2 or more dimensions;
-    the LR is applied by the step (JAX make_optimizer, training.py:243-319).
+                   moment_dtype: Optional[torch.dtype] = None,
+                   max_norm: Optional[float] = 1.0,
+                   decay: Optional[Callable[[str, tuple], bool]] = None
+                   ) -> Optimizer:
+    """AdamW(0.9, 0.95), eps 1e-8, with a global-norm clip at `max_norm`
+    in fp32 (None: no clip, CroCo pretraining's), bias correction and
+    decoupled decay where `decay(name, shape)` holds (`decay_mask` by
+    default); the LR is applied by the step (JAX make_optimizer,
+    training.py:243-319).
 
     update(grads, state, params) -> (updates, state): one pass per tensor
     (clip scale -> moments -> bias-corrected direction -> decay), the math
@@ -215,7 +256,8 @@ def make_optimizer(weight_decay: float,
     step passes `gnorm`, the norm of the whole gradient, and `shapes`, the
     full shapes of the parameters this rank holds in part (the decay rule
     reads them)."""
-    b1, b2, eps, max_norm = 0.9, 0.95, 1e-8, 1.0
+    b1, b2, eps = 0.9, 0.95, 1e-8
+    decay = decay or decay_mask
 
     def init(params: Dict[str, torch.Tensor]) -> AdamState:
         zeros = {n: torch.zeros_like(p, dtype=moment_dtype or p.dtype)
@@ -233,8 +275,9 @@ def make_optimizer(weight_decay: float,
             gnorm = global_norm_f32(grads.values())
         finite = torch.isfinite(gnorm)
         # clip_by_global_norm semantics: scale only when gnorm >= max_norm
-        scale = torch.where(gnorm < max_norm, torch.ones_like(gnorm),
-                            max_norm / gnorm)
+        scale = (1.0 if max_norm is None else
+                 torch.where(gnorm < max_norm, torch.ones_like(gnorm),
+                             max_norm / gnorm))
         count = state.count + finite.to(state.count.dtype)
         cf = count.float()
         bc1, bc2 = 1.0 - b1 ** cf, 1.0 - b2 ** cf
@@ -246,7 +289,7 @@ def make_optimizer(weight_decay: float,
             m2 = b1 * mf + (1.0 - b1) * gf
             v2 = b2 * vf + (1.0 - b2) * torch.square(gf)
             u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            if decay_mask(name, (shapes or {}).get(name, p.shape)):
+            if decay(name, (shapes or {}).get(name, p.shape)):
                 u = u + weight_decay * p.float()
             updates[name] = torch.where(finite, u, torch.zeros_like(u)).to(p.dtype)
             mu[name] = torch.where(finite, m2, mf).to(m.dtype)

@@ -14,6 +14,9 @@ names), so both packages can run on the same weights:
     becomes ConvTranspose2d's (in, out, kh, kw) with the flip undone
   - block stacks (leading depth axis) -> one entry per block index
 
+`state_dict_from_croco_params` does the same for the JAX package's CroCo
+pretraining params (`init_croco`'s pytree) and the port's `CroCoNet`.
+
 `load_spann3r_checkpoint` loads a published Spann3R `.pth` into the port:
 its module paths are the published keys already. `load_dust3r_checkpoint`
 loads a DUSt3R `.pth` into the port's `dust3r` submodule. Both read a
@@ -147,6 +150,23 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any],
         _lin(sd, f"attn_head_{num}.2", params_np[f"attn_head_{num}"]["fc2"])
     if "pos_patch_embed" in params_np:
         _conv(sd, "pos_patch_embed.proj", params_np["pos_patch_embed"]["proj"])
+    return sd
+
+
+def state_dict_from_croco_params(params_np: Mapping[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """JAX CroCoNet params (`croco_pretrain.init_croco`, nested dicts of
+    numpy arrays) -> the state dict of the port's `CroCoNet`, loadable with
+    `load_state_dict(strict=True)`."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "patch_embed.proj", params_np["patch_embed"]["proj"])
+    _block_stack(sd, "enc_blocks", params_np["enc_blocks"])
+    _ln(sd, "enc_norm", params_np["enc_norm"])
+    _lin(sd, "decoder_embed", params_np["decoder_embed"])
+    _block_stack(sd, "dec_blocks", params_np["dec_blocks"], decoder=True)
+    _ln(sd, "dec_norm", params_np["dec_norm"])
+    sd["mask_token"] = _t(params_np["mask_token"])
+    _lin(sd, "prediction_head", params_np["prediction_head"])
     return sd
 
 

@@ -461,3 +461,56 @@ def test_state_bytes_prediction():
     share = sum(int(torch.Size(full[n]).numel()) for n in sliced) / 658691208
     assert 0.67 < share < 0.68
     assert abs((one - two) - share * one / 2) < 1e6
+
+
+# ---------------------------------------------------------------------------
+# phase 13's launch counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pos", ["cosine", "RoPE100"])
+def test_pretrain_launch_counts(autograd_kernels, pos):
+    """chip_smoke's pretrain_launches is what one pretrain step launches:
+    K2 both ways in each attention of the two encoder passes and of the
+    decoder (self and cross), K3 both ways with RoPE100 only, no K1; at
+    narrow widths of both published configurations' kinds (a head-dim-32
+    decoder in the cosine one, as CroCoNet()'s)."""
+    from spann3r_torch import config as C
+    from spann3r_torch import pretraining as P
+    from spann3r_torch.models import croco_pretrain as cp
+
+    heads = 2 if pos == "cosine" else 1
+    cfg, ratio = cp.parse_croco_model(
+        f"CroCoNet(enc_embed_dim=64, enc_depth=3, enc_num_heads=1, "
+        f"dec_embed_dim={32 * heads}, dec_depth=2, dec_num_heads={heads}, "
+        f"img_size=48, pos_embed='{pos}')")
+    model = cp.build_croco(cfg, "cpu", torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    img1, img2 = (torch.randn(2, 48, 48, 3, generator=g) for _ in range(2))
+    mask = cp.random_mask(g, 2, 9, ratio)
+    opt = P.make_pretrain_optimizer(0.05)
+    step, _, _ = P.make_pretrain_step(ratio, C.FP32, opt)
+    _, loss = step(model, opt.init(dict(model.named_parameters())), img1,
+                   img2, mask, 1e-4)
+    assert torch.isfinite(loss)
+    want = chip_smoke.pretrain_launches(cfg)
+    assert autograd_kernels.launch_counts() == want
+    assert want["sdpa"] == want["sdpa_bwd"] == 2 * 3 + 2 * 2
+    assert want["rope2d"] == (10 if pos == "RoPE100" else 0)
+
+
+def test_pretrain_configurations_are_the_published_ones():
+    """Phase 13's two configurations: CroCoNet()'s decoder has head dim 32,
+    the v2 ViT-L / Base decoder is DUSt3R's backbone with RoPE100; the
+    parity configuration runs K2 at both head dims and K3."""
+    from spann3r_torch.models import croco_pretrain as cp
+
+    a, ra = cp.parse_croco_model(chip_smoke.PRETRAIN_MODELS["CroCoNet()"])
+    assert (a.enc.dim, a.enc.depth, a.enc.head_dim) == (768, 12, 64)
+    assert (a.dec.dim, a.dec.depth, a.dec.head_dim) == (512, 8, 32)
+    assert a.enc.rope_base == 0 and ra == 0.9 and a.img_size == (224, 224)
+    b, _ = cp.parse_croco_model(chip_smoke.PRETRAIN_MODELS["v2 ViT-L/Base"])
+    assert (b.enc.dim, b.enc.depth, b.enc.num_heads) == (1024, 24, 16)
+    assert (b.dec.dim, b.dec.depth, b.dec.num_heads) == (768, 12, 12)
+    assert b.enc.rope_base == 100.0
+    c, _ = cp.parse_croco_model(chip_smoke.PRETRAIN_PARITY_MODEL)
+    assert (c.enc.head_dim, c.dec.head_dim, c.enc.rope_base) == (64, 32, 100.0)

@@ -384,3 +384,77 @@ def test_rope_backward_kernel(dev, dt, grad_layout):
     rope_tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
     for got, g in ((dq, gs[0]), (dk, gs[1])):
         _assert_close(got, rope.rope_2d_plain(g, pos, 100.0, -1.0), rope_tol)
+
+
+# ---------------------------------------------------------------------------
+# head dim 32 (the CroCo decoder: 512 wide, 16 heads)
+# ---------------------------------------------------------------------------
+
+def _sdpa_operands_d(layout, dtype, dev, n, m, b, h, d, seed=70):
+    """q (B, H, N, d), k and v (B, H, M, d): 'self' slices one packed qkv
+    projection (row stride 3 * H * d: the columns past d of a head are the
+    next head's), 'cross' separate (B, *, H * d) projections."""
+    if layout == "self":
+        qkv = _randn((b, n, 3, h, d), dtype, dev, seed).permute(2, 0, 3, 1, 4)
+        return qkv[0], qkv[1], qkv[2]
+    q = _randn((b, n, h * d), dtype, dev, seed + 1).view(b, n, h, d)
+    k, v = (_randn((b, m, h * d), dtype, dev, s).view(b, m, h, d)
+            for s in (seed + 2, seed + 3))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("layout,b,h,n,m", [
+    ("self", 2, 16, 20, 20),      # the CroCo encoder's visible tokens
+    ("self", 4, 16, 196, 196),    # the CroCo decoder
+    ("cross", 2, 16, 196, 196), ("cross", 2, 3, 20, 196),
+    ("cross", 1, 4, 70, 33), ("self", 2, 3, 1, 1)])
+def test_sdpa_kernel_head_dim_32(dev, dt, layout, b, h, n, m):
+    """The forward kernel at head dim 32 against sdpa_plain: strided
+    views whose next 32 columns hold another head (the loads are masked
+    by column), ragged tiles, N != M."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands_d(layout, dtype, dev, n, m, b, h, 32)
+    scale = 32 ** -0.5
+    before = _kernels.LAUNCHES["sdpa"]
+    out = attention.sdpa(q, k, v, scale)
+    assert _kernels.LAUNCHES["sdpa"] == before + 1
+    assert out.shape == (b, h, n, 32)
+    _assert_scaled(out, attention.sdpa_plain(q, k, v, scale),
+                   1e-4 if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("layout,b,h,n,m", [
+    ("self", 2, 16, 20, 20), ("self", 4, 16, 196, 196),
+    ("cross", 2, 3, 68, 196), ("cross", 2, 3, 196, 68),
+    ("cross", 1, 4, 37, 101)])
+def test_sdpa_backward_kernel_head_dim_32(dev, dt, layout, b, h, n, m):
+    """The backward kernel at head dim 32 against sdpa_backward_plain, dO
+    a (B, N, H, 32) view, the forward's logsumexp; two launches give the
+    same bits."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands_d(layout, dtype, dev, n, m, b, h, 32)
+    scale = 32 ** -0.5
+    _, lse = attention.sdpa_cuda(q, k, v, scale, with_lse=True)
+    want_lse = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(
+        -1, -2)) * scale, dim=-1)
+    _assert_scaled(lse, want_lse, 1e-5)
+    dout = _randn((b, n, h, 32), dtype, dev, 77).transpose(1, 2)
+    got = attention.sdpa_backward_cuda(q, k, v, dout, lse, scale)
+    again = attention.sdpa_backward_cuda(q, k, v, dout, lse, scale)
+    want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+    for g, g2, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.equal(g, g2)
+        _assert_scaled(g, w, 1e-4 if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("d", [16, 48, 128])
+def test_sdpa_kernels_refuse_other_head_dims(dev, d):
+    q = _randn((1, 2, 8, d), torch.bfloat16, dev, 80)
+    with pytest.raises(ValueError, match="head dim 32 or 64"):
+        attention.sdpa_cuda(q, q, q, 0.125)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="head dim 32 or 64"):
+        attention.sdpa_backward_cuda(q, q, q, q, lse, 0.125)

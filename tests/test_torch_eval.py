@@ -47,10 +47,18 @@ COPIES = [
     "datasets/loader.py", "datasets/demo.py", "datasets/seven_scenes.py",
     "datasets/nrgbd.py", "datasets/dtu.py", "datasets/synth.py",
     "datasets/sampler.py", "utils/metrics.py",
+    "datasets/scannet.py", "datasets/scannetpp.py", "datasets/arkit.py",
+    "datasets/blendedmvs.py", "datasets/co3d.py", "datasets/habitat.py",
+    "habitat_gen/generator.py", "habitat_gen/scripts.py", "datasets/pairs.py",
+    "tools/extract_crops.py", "habitat_gen/__init__.py",
 ]
 # the native library builds beside the port's kernels, under a name that
 # is renamed into place
 PORT_ONLY_LINES = {
+    # the commands it prints name the port's CLI
+    "habitat_gen/scripts.py": {
+        'f"{prefix}python -m spann3r_torch.habitat_gen.scripts "',
+        'print(f"python -m spann3r_torch.habitat_gen.scripts "'},
     # a world of one unless torch.distributed is initialised
     "utils/metrics.py": {
         "if not (dist.is_available() and dist.is_initialized()):",
@@ -70,6 +78,9 @@ PORT_ONLY_LINES = {
         "os.replace(tmp, _LIB)"},
 }
 JAX_ONLY_LINES = {
+    "habitat_gen/scripts.py": {
+        'f"{prefix}python -m spann3r_tpu.habitat_gen.scripts "',
+        'print(f"python -m spann3r_tpu.habitat_gen.scripts "'},
     "utils/metrics.py": {
         "if jax.process_count() == 1:",
         "arr = process_allgather(np.array([self.count, self.total]))",

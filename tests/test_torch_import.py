@@ -47,6 +47,14 @@ MODULES = [
     "spann3r_torch.tools.readiness_drill", "spann3r_torch.tools.train_memory",
     "spann3r_torch.parallel", "spann3r_torch.parallel.mesh",
     "spann3r_torch.parallel.sharding",
+    "spann3r_torch.datasets.scannet", "spann3r_torch.datasets.scannetpp",
+    "spann3r_torch.datasets.arkit", "spann3r_torch.datasets.blendedmvs",
+    "spann3r_torch.datasets.co3d", "spann3r_torch.datasets.habitat",
+    "spann3r_torch.datasets.pairs", "spann3r_torch.habitat_gen.generator",
+    "spann3r_torch.habitat_gen.scripts", "spann3r_torch.tools.extract_crops",
+    "spann3r_torch.tools.dataset_fixtures", "spann3r_torch.tools.croco_demo",
+    "spann3r_torch.models.croco_pretrain", "spann3r_torch.pretraining",
+    "spann3r_torch.pretrain",
 ]
 
 

@@ -332,6 +332,32 @@ def test_sdpa_plain_vs_jax(interpret_mode, b, h, n, m, d):
     _close(out, JPA.fused_sdpa(jq, jk, jv, scale))
 
 
+@pytest.mark.parametrize("b,h,n,m", [(2, 16, 20, 20), (1, 16, 196, 196),
+                                     (2, 4, 20, 37)])
+def test_sdpa_plain_head_dim_32_vs_jax(interpret_mode, b, h, n, m):
+    """Head dim 32, the CroCo decoder's (the encoder's 20 visible tokens,
+    the decoder's 196, N != M): the plain version against the JAX kernel
+    in interpret mode, fp32."""
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, h, n, 32), (b, h, m, 32), (b, h, m, 32)))
+    scale = 32 ** -0.5
+    out = TA.sdpa(*(torch.from_numpy(a) for a in (q, k, v)), scale)
+    assert out.shape == (b, h, n, 32)
+    _close(out, JPA.fused_sdpa(*(jnp.asarray(a) for a in (q, k, v)), scale))
+
+
+def test_sdpa_kernel_wrappers_refuse_other_head_dims():
+    """The kernels take head dim 32 or 64: any other raises before a
+    launch, naming the two."""
+    for d in (16, 48, 128):
+        x = torch.zeros(1, 2, 8, d)
+        with pytest.raises(ValueError, match="head dim 32 or 64"):
+            TA.sdpa_cuda(x, x, x, 0.1)
+        with pytest.raises(ValueError, match="head dim 32 or 64"):
+            TA.sdpa_backward_cuda(x, x, x, x, torch.zeros(1, 2, 8), 0.1)
+
+
 def test_sdpa_bf16_vs_jax():
     rng = np.random.default_rng(12)
     q, k, v = (jnp.asarray(rng.standard_normal((1, 2, 24, 64))).astype(jnp.bfloat16)

@@ -112,6 +112,36 @@ def test_sdpa_backward_plain_bf16_matches_jax(n, m):
             (np.abs(gt - w) / bound).max())
 
 
+@pytest.mark.parametrize("n,m", [(20, 20), (196, 196), (37, 101)])
+def test_sdpa_grads_head_dim_32_match_jax(n, m):
+    """Head dim 32 (the CroCo decoder's): sdpa's gradients and
+    sdpa_backward_plain against the VJP of the JAX fused_sdpa (its kernel
+    in interpret mode), fp32."""
+    import functools
+    rng = np.random.default_rng(5)
+    q, k, v, w = (rng.standard_normal((2, 3, rows, 32)).astype(np.float32)
+                  for rows in (n, m, m, n))
+    scale = 32 ** -0.5
+    orig = JPATT.pl.pallas_call
+    JPATT.pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        want = jax.grad(lambda *a: jnp.sum(JPATT.fused_sdpa(*a, scale) * w),
+                        argnums=(0, 1, 2))(q, k, v)
+    finally:
+        JPATT.pl.pallas_call = orig
+    leaves = [_t(x, True) for x in (q, k, v)]
+    got = torch.autograd.grad((attention.sdpa(*leaves, scale) * _t(w)).sum(),
+                              leaves)
+    lse = torch.logsumexp(torch.matmul(leaves[0], leaves[1].transpose(-1, -2))
+                          * scale, dim=-1).detach()
+    plain = attention.sdpa_backward_plain(*(_t(x) for x in (q, k, v)), _t(w),
+                                          lse, scale)
+    for g, p, ww in zip(got, plain, want):
+        assert g.shape[-1] == 32
+        _close(g, ww, OP_TOL)
+        _close(p, ww, OP_TOL)
+
+
 def _rope_inputs(seed):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((2, 3, 40, 64)).astype(np.float32)
