@@ -122,8 +122,13 @@ Phases, each printing its results; any failure raises and exits non-zero:
                dim 64 (loss and every gradient, within 1e-3 of the
                largest |grad|).
 Phase 3 also holds K2 and its backward at head dim 32 (DH32_SHAPES: the
-CroCoNet() decoder at B = 64, ragged 20-token tiles, N != M), with planted
-faults on the columns and the last tile (records under "head_dim_32").
+CroCoNet() decoder at B = 64, and a ragged 20-token tile and N != M as
+extra coverage), with planted faults on the columns and the last tile
+(records under "head_dim_32"), and K2 both ways and K3 both ways at the
+pretraining path's other shapes (PRETRAIN_SHAPES: the encoders on the 20
+visible tokens and on 196, the decoders' self and cross attention; K3 at
+the positions a random mask gathers), with planted faults (records under
+"pretrain_by_shape").
 Phase 3 also holds K2's backward kernel and K3 at sign -1 (the backward)
 against their plain versions at the training shapes and the 512 encoder's,
 with planted faults (K2's: one in each of dq, dk and dv), K2's and K3's
@@ -204,7 +209,11 @@ HW_224 = (224, 224)
 # that is and how many elements needed it. A flip also rescales the rest
 # of its row by up to attn_thresh / kept, so each slot's sum gets
 # 2 * attn_thresh / min(kept) times the weight it takes from those rows as
-# well. Planted faults (a key tile, a slot range or a RoPE head left out)
+# well. K2's bf16 backward rounds P and dS to bf16 on both sides: the
+# entries whose fp32 values lie within rounding of a bf16 boundary may
+# round apart, and each output gets the step's effect through them added
+# to its bound (`bwd_flip_allowance`); the run prints how many entries
+# that is. Planted faults (a key tile, a slot range or a RoPE head left out)
 # must fail this check; the run also says whether the looser
 # tol * (1 + |plain|) bound of earlier runs would have caught them.
 TOL_BF16 = 2e-2
@@ -603,6 +612,7 @@ def phase_kernels(records):
                                 TOL_BF16, extra[0] if extra else 0.0)
         backward_cases(case, planted, dtype, randn, records)
         head_dim_32_cases(case, planted, dtype, randn, records)
+        pretrain_cases(case, planted, dtype, randn, records)
     records["rope2d"]["decoder"] = rope_decoder
     records["rope2d"]["offline"] = rope_offline
     records["sdpa"]["offline"] = sdpa_offline
@@ -634,6 +644,69 @@ def sdpa_bwd_without_tails(q, k, v, dout, lse, scale):
     pr[..., -64:, :] = 0.0
     return (torch.matmul(ds, k.float()).to(q.dtype),
             torch.matmul(pr.transpose(-1, -2), dout.float()).to(q.dtype))
+
+
+def bwd_flip_allowance(q, k, v, dout, lse, scale):
+    """The rounding-flip term of K2's bf16 backward against
+    sdpa_backward_plain: (extra for dq, dk, dv) and the count of entries
+    that may flip. Both sides round P (for dv) and dS (for dq and dk) to
+    bf16 from fp32 values that differ by fp32 rounding: the logits' and
+    dP = dO v^T's sums in another order, exp2f of log2 units against exp,
+    the row term D summed in another order. Where the interval that holds
+    both fp32 values (`bwd_rounding_intervals`) spans a bf16 rounding
+    boundary, the two sides may round the entry to neighbouring bf16
+    values: a step that moves dv by it times |dO|, dq by it times |k| and
+    dk by it times |q|. One such step of a peaked row's dS (~0.5, a step of
+    2^-8) times |k| ~ 1 is 4e-3, past 2e-2 * (rms + |dq|) where dq is near
+    0 (rms ~0.07 at 196 tokens): one element of 38.5 million did so at the
+    v2 encoder's (64,16,196,196). The term is zero elsewhere, and in fp32,
+    which rounds neither."""
+    if q.dtype != torch.bfloat16:
+        return (0.0, 0.0, 0.0), 0
+    p, d_p, ds, d_ds = bwd_rounding_intervals(q, k, v, dout, lse, scale)
+
+    def steps(x, dx):
+        return ((x + dx).to(torch.bfloat16).float()
+                - (x - dx).to(torch.bfloat16).float()).abs()
+
+    f_ds, f_p = steps(ds, d_ds), steps(p, d_p)
+    flipped = int((f_ds > 0).sum()) + int((f_p > 0).sum())
+    return ((torch.matmul(f_ds, k.float().abs()),
+             torch.matmul(f_ds.transpose(-1, -2), q.float().abs()),
+             torch.matmul(f_p.transpose(-1, -2), dout.float().abs())),
+            flipped)
+
+
+def bwd_rounding_intervals(q, k, v, dout, lse, scale):
+    """sdpa_backward_plain's fp32 P and dS before their rounding, each with
+    the half-width of an interval that holds the kernel's value too: (P,
+    wP, dS, wdS), (B, H, N, M) each. Worst-case bounds from fp32's unit
+    roundoff g = 2^-24, for both sides (a sum of n terms lies within n * g
+    of the sum of its terms' magnitudes): the exponent within 2 * Dh * g *
+    scale * |q||k|^T + 8 * g * (|s| + |lse| + 1) (exp, exp2f and the log2
+    scaling, a few ulps each), so wP = P times that; dP within wdP = 2 * Dh
+    * g * |dO||v|^T; D within sum_j (wP |dP| + P wdP) + 2 * M * g * sum_j
+    P |dP|; dS = scale * P (dP - D) within scale * (wP |dP - D| + P (wdP +
+    wD)) + 4 * g * |dS|."""
+    g = 2.0 ** -24
+    dh, m = q.shape[-1], k.shape[2]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dx = torch.matmul(qf.abs(), kf.abs().transpose(-1, -2)) * (
+        2 * dh * g * scale) + 8 * g * (s.abs() + lse.abs()[..., None] + 1)
+    del s
+    d_p = p * dx
+    del dx
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    d_dp = torch.matmul(dof.abs(), vf.abs().transpose(-1, -2)) * (2 * dh * g)
+    row = (p * dp).sum(-1, keepdim=True)
+    d_row = ((d_p * dp.abs() + p * d_dp).sum(-1, keepdim=True)
+             + 2 * m * g * (p * dp.abs()).sum(-1, keepdim=True))
+    ds = p * (dp - row) * scale
+    d_ds = scale * (d_p * (dp - row).abs() + p * (d_dp + d_row)) \
+        + 4 * g * ds.abs()
+    return p, d_p, ds, d_ds
 
 
 def backward_cases(case, planted, dtype, randn, records):
@@ -681,11 +754,13 @@ def backward_cases(case, planted, dtype, randn, records):
         work = (10.0 * b * h * n * n * 64,
                 esize * 7.0 * b * h * n * 64 + 4.0 * b * h * n)
         shape = f"({b},{h},{n},{n})"
+        flip, flipped = bwd_flip_allowance(q, k, v, dout, lse, 0.125)
         rec = case(
             "sdpa_bwd", f"{label} {shape} lse max err {lse_err:.1e}", dtype,
             lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, 0.125),
             lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125),
-            main and label == "train encoder", work,
+            main and label == "train encoder", work, extra=flip,
+            note=f" + flips of {flipped} P/dS entries",
             run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl),
                                                     dout),
             library_minus=lib_fwd)
@@ -704,8 +779,9 @@ def backward_cases(case, planted, dtype, randn, records):
                     ("dk without its last key tile", wrong_dk, 1),
                     ("dv without its last query tile", wrong_dv, 2)):
                 planted(f"sdpa_bwd {label} {shape}: {what}", wrong, want[i],
-                        TOL_BF16)
+                        TOL_BF16, flip[i])
             del want, wrong_dq, wrong_dk, wrong_dv
+        del flip
         if "value" in label:
             continue
         grid = (patch_positions(14, 14, q.device) if n == 196 else
@@ -743,11 +819,13 @@ def backward_cases(case, planted, dtype, randn, records):
                     wrong, want, TOL_ROPE_BF16)
 
 
-# K2 and its backward at head dim 32, the CroCoNet() decoder's (512 wide, 16
-# heads, 196 tokens at 224, the pretraining CLI's batch of 64), a ragged
-# 20-token shape (the encoder's visible tokens at mask ratio 0.9) and N != M
-DH32_SHAPES = (("decoder", 64, 16, 196, 196), ("ragged", 64, 16, 20, 20),
-               ("N!=M", 64, 16, 20, 196))
+# K2 and its backward at head dim 32: the CroCoNet() decoder's
+# self-attention (512 wide, 16 heads, 196 tokens at 224, the pretraining
+# CLI's batch of 64), and as extra coverage, on no path of the port, a
+# ragged 20-token tile and N != M
+DH32_SHAPES = (("CroCoNet() decoder", 64, 16, 196, 196),
+               ("extra: ragged", 64, 16, 20, 20),
+               ("extra: N!=M", 64, 16, 20, 196))
 
 
 def head_dim_32_cases(case, planted, dtype, randn, records):
@@ -812,12 +890,14 @@ def head_dim_32_cases(case, planted, dtype, randn, records):
                       for t in (q, k, v))
         lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                          scale=scale)
+        flip, flipped = bwd_flip_allowance(q, k, v, dout, lse, scale)
         rec = case(
             "sdpa_bwd", f"head dim 32 {label} {shape}", dtype,
             lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, scale),
             lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, scale),
             False, (10.0 * b * h * n * m * d,
                     esize * (3.0 * n + 4.0 * m) * b * h * d + 4.0 * b * h * n),
+            extra=flip, note=f" + flips of {flipped} P/dS entries",
             run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl),
                                                     dout),
             library_minus=lib_fwd)
@@ -841,8 +921,185 @@ def head_dim_32_cases(case, planted, dtype, randn, records):
                                i))
             for what, wrong, i in faults:
                 planted(f"sdpa_bwd head dim 32 {label} {shape}: {what}",
-                        wrong, want[i], TOL_BF16)
+                        wrong, want[i], TOL_BF16, flip[i])
             del want, wrong_dq, wrong_dk, wrong_dv
+        del flip
+
+
+# the pretraining path's other attention shapes (phase 13's two
+# configurations at 224, B = 64, mask ratio 0.9: 20 visible tokens of 196):
+# (label, B, H, N, M, head dim, layout, RoPE). CroCoNet() (cosine
+# positions): the encoder, 768 wide with 12 heads, on the visible tokens and
+# on image 2's, and the decoder's cross-attention, 512 wide with 16 heads
+# (its self-attention is DH32_SHAPES' first). The v2 ViT-L / Base decoder
+# (RoPE100): the encoder, 1024 wide with 16 heads, and the decoder, 768 wide
+# with 12 heads, self and cross. "self": q, k, v strided slices of one qkv
+# projection; "cross": q, k, v (B, N, H, Dh) views of separate projections;
+# with RoPE, K3 rotates q and k first (the visible tokens at the positions
+# the mask gathers) and K2 takes its outputs
+PRETRAIN_SHAPES = (
+    ("CroCoNet() encoder visible", 64, 12, 20, 20, 64, "self", False),
+    ("CroCoNet() encoder", 64, 12, 196, 196, 64, "self", False),
+    ("CroCoNet() decoder cross", 64, 16, 196, 196, 32, "cross", False),
+    ("v2 encoder visible", 64, 16, 20, 20, 64, "self", True),
+    ("v2 encoder", 64, 16, 196, 196, 64, "self", True),
+    ("v2 decoder self", 64, 12, 196, 196, 64, "self", True),
+    ("v2 decoder cross", 64, 12, 196, 196, 64, "cross", True))
+
+
+def sdpa_unmasked_padding(q, k, v, scale):
+    """sdpa_plain as if the keys that pad the last key tile to 64 counted,
+    each with a zero logit and a zero value: the fault of a ragged tile
+    whose padding is not masked."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    pad = -k.shape[2] % 64
+    p = torch.softmax(torch.cat([s, s.new_zeros(*s.shape[:-1], pad)], -1), -1)
+    return torch.matmul(p[..., :k.shape[2]].to(v.dtype).float(),
+                        v.float()).to(v.dtype)
+
+
+def pretrain_cases(case, planted, dtype, randn, records):
+    """K3 (with RoPE), K2 and their backwards at PRETRAIN_SHAPES against
+    their plain versions, in the layouts the pretraining path gives them;
+    the visible tokens' positions gathered from the patch grid as
+    `croco_forward` gathers them under a `random_mask`. Planted faults,
+    bf16: K3 with the first N positions of the grid (not the gathered ones)
+    on the visible tokens and with the last head of k unrotated, its
+    backward rotating forward (sign +1) and leaving the last head of dk
+    unrotated; K2 counting the padding keys of its last tile and without
+    its last key tile; its backward's three last-tile faults of
+    `backward_cases`. Timed in bf16, the path's type under --amp 1; records
+(bf16) under "pretrain_by_shape"."""
+    import torch.nn.functional as F
+
+    from spann3r_torch.models.croco_pretrain import random_mask
+    from spann3r_torch.models.vit import patch_positions
+    from spann3r_torch.ops import attention, rope
+
+    main = dtype == torch.bfloat16
+    esize = torch.finfo(dtype).bits // 8
+    grid = patch_positions(14, 14, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for label, b, h, n, m, d, layout, with_rope in PRETRAIN_SHAPES:
+        shape = f"({b},{h},{n},{m},{d})"
+        scale = d ** -0.5
+        if layout == "self":
+            qkv = randn(b, n, 3, h, d, dtype=dtype).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1], qkv[2]
+        else:
+            q = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+            k, v = (randn(b, m, h, d, dtype=dtype).transpose(1, 2)
+                    for _ in range(2))
+        full = grid[None].expand(b, -1, -1)
+        if n < 196:
+            mask = random_mask(gen, b, 196, 0.9, "cuda")
+            order = torch.argsort(mask.to(torch.int32), dim=1, stable=True)
+            qpos = torch.take_along_dim(full, order[:, :n, None], dim=1)
+        else:
+            qpos = full
+        kpos = qpos if layout == "self" else full
+        pos_bytes = sum({t.untyped_storage().data_ptr():
+                         t.untyped_storage().nbytes()
+                         for t in (qpos, kpos)}.values())
+        if with_rope:
+            work = (3.0 * (q.numel() + k.numel()),
+                    2.0 * (q.numel() + k.numel()) * esize + pos_bytes)
+            rec = case("rope2d", f"pretrain {label} q+k {shape}", dtype,
+                       lambda: rope.rope_2d_qk_cuda(q, k, qpos, kpos),
+                       lambda: (rope.rope_2d_plain(q, qpos, 100.0),
+                                rope.rope_2d_plain(k, kpos, 100.0)),
+                       False, work, time_it=main)
+            if main:
+                records["rope2d"].setdefault("pretrain_by_shape",
+                                             {})[label] = rec
+                want = rope.rope_2d_plain(k, kpos, 100.0)
+                wrong = want.clone()
+                wrong[:, -1] = k[:, -1]
+                planted(f"rope2d pretrain {label}: the last head of k "
+                        f"unrotated", wrong, want, TOL_ROPE_BF16)
+                if n < 196:
+                    want = rope.rope_2d_plain(q, qpos, 100.0)
+                    planted(f"rope2d pretrain {label}: the first {n} "
+                            f"positions, not the gathered ones",
+                            rope.rope_2d_plain(q, full[:, :n], 100.0), want,
+                            TOL_ROPE_BF16)
+            q, k = rope.rope_2d_qk_cuda(q, k, qpos, kpos)
+        rec = case("sdpa", f"pretrain {label} {shape}", dtype,
+                   lambda: attention.sdpa_cuda(q, k, v, scale),
+                   lambda: attention.sdpa_plain(q, k, v, scale), False,
+                   (4.0 * b * h * n * m * d, esize * 2.0 * b * h * (n + m) * d),
+                   time_it=main, run_library=lambda: F.scaled_dot_product_attention(
+                       q, k, v, scale=scale))
+        if main:
+            records["sdpa"].setdefault("pretrain_by_shape", {})[label] = rec
+            want = attention.sdpa_plain(q, k, v, scale)
+            planted(f"sdpa pretrain {label} {shape}: the padding keys of the "
+                    f"last tile counted", sdpa_unmasked_padding(q, k, v, scale),
+                    want, TOL_BF16)
+            p = torch.softmax(torch.matmul(q.float(), k.float().transpose(
+                -1, -2)) * scale, dim=-1).to(dtype).float()
+            p[..., 64 * ((m - 1) // 64):] = 0.0
+            planted(f"sdpa pretrain {label} {shape}: without its last key "
+                    f"tile", torch.matmul(p, v.float()).to(dtype), want,
+                    TOL_BF16)
+            del want, p
+        dout = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+        _, lse = attention.sdpa_cuda(q, k, v, scale, with_lse=True)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                         scale=scale)
+        flip, flipped = bwd_flip_allowance(q, k, v, dout, lse, scale)
+        rec = case(
+            "sdpa_bwd", f"pretrain {label} {shape}", dtype,
+            lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, scale),
+            lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, scale),
+            False, (10.0 * b * h * n * m * d,
+                    esize * (3.0 * n + 4.0 * m) * b * h * d + 4.0 * b * h * n),
+            extra=flip, note=f" + flips of {flipped} P/dS entries",
+            time_it=main,
+            run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl),
+                                                    dout),
+            library_minus=lib_fwd)
+        if main:
+            records["sdpa_bwd"].setdefault("pretrain_by_shape", {})[label] = rec
+            want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+            wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse,
+                                                        scale)
+            wrong_dk = want[1].clone()
+            wrong_dk[..., -64:, :] = 0.0
+            for what, wrong, i in (
+                    ("dq without its last key tile", wrong_dq, 0),
+                    ("dk without its last key tile", wrong_dk, 1),
+                    ("dv without its last query tile", wrong_dv, 2)):
+                planted(f"sdpa_bwd pretrain {label} {shape}: {what}", wrong,
+                        want[i], TOL_BF16, flip[i])
+            del want, wrong_dq, wrong_dk, wrong_dv
+        del flip
+        if not with_rope:
+            continue
+        dq = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+        dk = randn(b, m, h, d, dtype=dtype).transpose(1, 2)
+        work = (3.0 * (dq.numel() + dk.numel()),
+                2.0 * (dq.numel() + dk.numel()) * esize + pos_bytes)
+        rec = case(
+            "rope2d_bwd", f"pretrain {label} dq+dk {shape}", dtype,
+            lambda: tuple(rope._launch([(dq, qpos), (dk, kpos)], 100.0, -1.0,
+                                       counter="rope2d_bwd")),
+            lambda: (rope.rope_2d_plain(dq, qpos, 100.0, -1.0),
+                     rope.rope_2d_plain(dk, kpos, 100.0, -1.0)), False, work,
+            time_it=main)
+        if main:
+            records["rope2d_bwd"].setdefault("pretrain_by_shape",
+                                             {})[label] = rec
+            want = rope.rope_2d_plain(dk, kpos, 100.0, -1.0)
+            wrong = want.clone()
+            wrong[:, -1] = dk[:, -1]
+            planted(f"rope2d_bwd pretrain {label}: the last head of dk "
+                    f"unrotated", wrong, want, TOL_ROPE_BF16)
+            planted(f"rope2d_bwd pretrain {label}: dk rotated forward",
+                    rope.rope_2d_plain(dk, kpos, 100.0, 1.0), want,
+                    TOL_ROPE_BF16)
 
 
 # ---------------------------------------------------------------------------

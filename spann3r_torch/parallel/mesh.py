@@ -210,6 +210,19 @@ def all_gather_flat(shards, numels, group) -> dict:
     return out
 
 
+def all_reduce_flat(tensors, group) -> dict:
+    """{name: the group's sum of tensors[name]}, each a view of one flat
+    buffer: one all-reduce per dtype."""
+    out = {}
+    for names in _buckets(tensors):
+        flat = torch.cat([tensors[k].reshape(-1) for k in names])
+        dist.all_reduce(flat, group=group)
+        for k, part in zip(names, flat.split([tensors[k].numel()
+                                              for k in names])):
+            out[k] = part.view(tensors[k].shape)
+    return out
+
+
 def reduce_scatter_flat(fulls, group) -> dict:
     """{name: this rank's slice of the group's sum of fulls[name]}, padded
     as `flat_shard` pads: one reduce-scatter per dtype."""

@@ -41,7 +41,7 @@ from torch import nn
 
 from ..config import Spann3RConfig
 from ..models.spann3r import value_encoder_cfg
-from .mesh import (Mesh, _buckets, all_gather_flat, all_reduce_sum,
+from .mesh import (Mesh, all_gather_flat, all_reduce_flat, all_reduce_sum,
                    copy_to_group, flat_shard, reduce_scatter_flat)
 
 # the split of each tensor of a split block: "qkv" rows by heads of the
@@ -258,13 +258,8 @@ class Layout:
         group = self.mesh.data_group
         out = reduce_scatter_flat({n: grads[n] for n in self.fsdp}, group) \
             if self.fsdp else {}
-        rest = {n: g for n, g in grads.items() if n not in out}
-        for names in _buckets(rest):
-            flat = torch.cat([rest[n].reshape(-1) for n in names])
-            dist.all_reduce(flat, group=group)
-            for n, part in zip(names, flat.split([rest[n].numel()
-                                                  for n in names])):
-                out[n] = part.view(rest[n].shape)
+        out.update(all_reduce_flat(
+            {n: g for n, g in grads.items() if n not in out}, group))
         return {n: out[n] for n in grads}
 
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:

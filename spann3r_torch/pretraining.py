@@ -38,7 +38,7 @@ import torch.distributed as dist
 from .config import BF16, FP32, DUSt3RConfig, Precision, set_tf32_policy
 from .datasets.pairs import PairsDataset
 from .models import croco_pretrain as cp
-from .parallel.mesh import init_distributed
+from .parallel.mesh import all_reduce_flat, init_distributed
 from .training import (CheckpointManager, Optimizer, _opt_state_to,
                        apply_updates_, global_norm_f32, layer_lr_scales,
                        lr_at, make_optimizer)
@@ -97,40 +97,28 @@ def make_pretrain_optimizer(weight_decay: float) -> Optimizer:
     return make_optimizer(weight_decay, max_norm=None, decay=decay_mask)
 
 
-def _reduced_grads(grads: Dict[str, torch.Tensor], group,
-                   world: int) -> Dict[str, torch.Tensor]:
-    """The ranks' mean gradient: one all-reduce of the flattened fp32
-    gradients over `group` (nothing in one process)."""
-    if world == 1:
-        return grads
-    names = list(grads)
-    flat = torch.cat([grads[n].reshape(-1) for n in names])
-    dist.all_reduce(flat, group=group)
-    flat /= world
-    out, i = {}, 0
-    for n in names:
-        k = grads[n].numel()
-        out[n] = flat[i:i + k].view_as(grads[n])
-        i += k
-    return out
-
-
 def pretrain_loss_and_grads(model, img1: torch.Tensor, img2: torch.Tensor,
                             mask: torch.Tensor, mask_ratio: float,
                             prec: Precision, norm_pix_loss: bool = True,
                             group=None, world: int = 1):
     """(loss, {name: grad}) of MaskedMSE on one batch against the fp32
     parameters, as device tensors; over `world` ranks the loss and the
-    gradients of the global batch (each rank's mean)."""
+    gradients of the global batch (each rank's mean). The mask is taken
+    unchecked, as the JAX package's jitted step takes it: `croco_forward`'s
+    check reads the row counts back to the host, which would make every
+    step wait for the one before, and `random_mask` draws exact counts."""
     params = dict(model.named_parameters())
     with torch.enable_grad():
         pred, mask, target = cp.croco_forward(model, img1, img2, mask,
-                                              mask_ratio, prec)
+                                              mask_ratio, prec,
+                                              check_mask=False)
         loss = cp.masked_mse(pred, mask, target, norm_pix_loss=norm_pix_loss)
-        grads = torch.autograd.grad(loss, list(params.values()))
-    grads = _reduced_grads(dict(zip(params, grads)), group, world)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
     loss = loss.detach()
     if world > 1:
+        grads = all_reduce_flat(grads, group)
+        torch._foreach_div_(list(grads.values()), world)
         dist.all_reduce(loss, group=group)
         loss /= world
     return loss, grads

@@ -1,17 +1,21 @@
-#!/usr/bin/env python3
 """Where the time of one CroCo pretrain step of the port goes, on one CUDA
 card.
 
-    python3 tools/torch_pretrain_profile.py [--steps 5] [--out FILE]
+    python -m spann3r_torch.tools.pretrain_profile [--steps 5] [--out FILE]
 
-chip_smoke.py phase 13's setting: each configuration of PRETRAIN_MODELS
-(CroCoNet() and the CroCo v2 ViT-L / Base decoder) at 224, B = 64, --amp 1
-(bf16 compute against the fp32 weights), random weights and images from
-seed 0, one fixed mask. After two warm-up steps, each of --steps steps is
-taken apart, host clock with torch.cuda.synchronize() around each part:
-the mask draw, the forward and loss (`croco_forward`, `masked_mse`), the
-backward (`torch.autograd.grad`), the optimizer's update and its
-application; the median of each part and of their sum. Then one whole
+chip_smoke.py phase 13's setting (run from the repository's root, which
+holds chip_smoke.py): each configuration of PRETRAIN_MODELS (CroCoNet()
+and the CroCo v2 ViT-L / Base decoder) at 224, B = 64, --amp 1 (bf16
+compute against the fp32 weights), random weights and images from seed 0,
+one fixed mask. After two warm-up steps, each of --steps steps is taken
+apart, host clock with torch.cuda.synchronize() around each part: the mask
+draw, the forward and loss (`croco_forward`, `masked_mse`), the backward
+(`torch.autograd.grad`), the optimizer's update and its application; the
+median of each part and of their sum. Then --steps steps in a row as the
+CLI's loop takes them (a new mask each, each loss read back one step
+late, one synchronize at the end), in turns without and with the host
+read of the mask's row counts before each step that `croco_forward`'s
+check makes, three times each: the mean step of each run. Then one whole
 step under torch.profiler: device time and launches by kernel name and the
 device's busy share (the union of the kernel intervals against the
 profiled wall), written to FILE (default output/pretrain_profile.txt) and
@@ -28,8 +32,8 @@ import time
 
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def main():
@@ -39,8 +43,9 @@ def main():
                                                   "pretrain_profile.txt"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("torch_pretrain_profile: needs a CUDA device")
+        raise SystemExit("pretrain_profile: needs a CUDA device")
 
+    sys.path.insert(0, REPO)
     import chip_smoke as cs
     from spann3r_torch import config
     from spann3r_torch import pretraining as P
@@ -84,7 +89,8 @@ def main():
             def forward():
                 with torch.enable_grad():
                     pred, m, target = cp.croco_forward(
-                        model, img1, img2, mask, ratio, config.BF16)
+                        model, img1, img2, mask, ratio, config.BF16,
+                        check_mask=False)
                     return cp.masked_mse(pred, m, target, norm_pix_loss=True)
             loss = timed("forward+loss", forward)
             grads = timed("backward", lambda: dict(zip(params, torch.autograd
@@ -102,6 +108,33 @@ def main():
         for k, v in parts.items():
             lines.append(f"{k}\t{statistics.median(v):.1f}\t"
                          f"{[round(x, 1) for x in v]}")
+        n_vis = n - int(ratio * n)
+
+        def in_a_row(check: bool) -> float:
+            nonlocal state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = None
+            for _ in range(args.steps):
+                m = cp.random_mask(g, cs.PRETRAIN_B, n, ratio, "cuda")
+                if check:
+                    cp._check_mask(m, n, n_vis, ratio)
+                state, loss = step(model, state, img1, img2, m,
+                                   cs.PRETRAIN_LR)
+                if pending is not None:
+                    float(pending)
+                pending = loss
+            float(pending)
+            return (time.perf_counter() - t0) * 1e3 / args.steps
+
+        rows = {False: [], True: []}
+        for _ in range(3):
+            for check in (False, True):
+                rows[check].append(in_a_row(check))
+        for check in (False, True):
+            lines.append(f"{args.steps} steps in a row, loss read one late, "
+                         f"{'with' if check else 'without'} the mask's host "
+                         f"read: ms a step {[round(x, 1) for x in rows[check]]}")
         busy_ms, prof_wall, by_name, n_events = cs.device_profile(
             lambda: step(model, state, img1, img2, mask, cs.PRETRAIN_LR))
         lines.append(f"profiled step: wall {prof_wall:.1f} ms, device busy "

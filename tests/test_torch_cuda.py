@@ -387,7 +387,7 @@ def test_rope_backward_kernel(dev, dt, grad_layout):
 
 
 # ---------------------------------------------------------------------------
-# head dim 32 (the CroCo decoder: 512 wide, 16 heads)
+# head dim 32 (the CroCoNet() decoder: 512 wide, 16 heads)
 # ---------------------------------------------------------------------------
 
 def _sdpa_operands_d(layout, dtype, dev, n, m, b, h, d, seed=70):
@@ -405,8 +405,8 @@ def _sdpa_operands_d(layout, dtype, dev, n, m, b, h, d, seed=70):
 
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("layout,b,h,n,m", [
-    ("self", 2, 16, 20, 20),      # the CroCo encoder's visible tokens
-    ("self", 4, 16, 196, 196),    # the CroCo decoder
+    ("self", 2, 16, 20, 20),      # a ragged 20-token tile (extra coverage)
+    ("self", 4, 16, 196, 196),    # the CroCoNet() decoder
     ("cross", 2, 16, 196, 196), ("cross", 2, 3, 20, 196),
     ("cross", 1, 4, 70, 33), ("self", 2, 3, 1, 1)])
 def test_sdpa_kernel_head_dim_32(dev, dt, layout, b, h, n, m):
@@ -448,6 +448,57 @@ def test_sdpa_backward_kernel_head_dim_32(dev, dt, layout, b, h, n, m):
         assert g.shape == w.shape and g.dtype == dtype
         assert torch.equal(g, g2)
         _assert_scaled(g, w, 1e-4 if dt == "fp32" else tol)
+
+
+# the pretraining path at 224, B = 64 (chip_smoke.py's PRETRAIN_SHAPES): the
+# encoders on the 20 visible tokens and on 196 (CroCoNet()'s 12 heads, v2's
+# 16), the decoders' cross-attention (CroCoNet()'s at head dim 32) and v2's
+# self-attention
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("layout,h,n,d", [
+    ("self", 12, 20, 64), ("self", 12, 196, 64), ("cross", 16, 196, 32),
+    ("self", 16, 20, 64), ("self", 16, 196, 64), ("cross", 12, 196, 64)])
+def test_sdpa_kernels_at_the_pretrain_shapes(dev, dt, layout, h, n, d):
+    """K2 and its backward at the pretraining path's shapes against their
+    plain versions, q, k, v in the path's layouts."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands_d(layout, dtype, dev, n, n, 64, h, d, seed=90)
+    scale = d ** -0.5
+    out, lse = attention.sdpa_cuda(q, k, v, scale, with_lse=True)
+    _assert_scaled(out, attention.sdpa_plain(q, k, v, scale),
+                   1e-4 if dt == "fp32" else tol)
+    dout = _randn((64, n, h, d), dtype, dev, 91).transpose(1, 2)
+    got = attention.sdpa_backward_cuda(q, k, v, dout, lse, scale)
+    want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+    for g, w in zip(got, want):
+        _assert_scaled(g, w, 1e-4 if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("n", [20, 196])
+def test_rope_kernels_at_the_pretrain_positions(dev, dt, n):
+    """K3 both ways on the v2 encoder's q and k, (64, 16, n, 64) slices of
+    one qkv projection, at the positions croco_forward gives them: the
+    visible tokens' gathered under a random mask at ratio 0.9 (n = 20), the
+    whole grid with stride 0 over the batch (n = 196)."""
+    from spann3r_torch.models.croco_pretrain import random_mask
+    from spann3r_torch.models.vit import patch_positions
+
+    dtype, _ = DTYPES[dt]
+    grid = patch_positions(14, 14, dev)[None].expand(64, -1, -1)
+    if n < 196:
+        mask = random_mask(torch.Generator(device=dev).manual_seed(92), 64,
+                           196, 0.9, dev)
+        order = torch.argsort(mask.to(torch.int32), dim=1, stable=True)
+        pos = torch.take_along_dim(grid, order[:, :n, None], dim=1)
+    else:
+        pos = grid
+    q, k, _ = _sdpa_operands_d("self", dtype, dev, n, n, 64, 16, 64, seed=93)
+    rope_tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for sign in (1.0, -1.0):
+        qr, kr = rope.rope_2d_qk_cuda(q, k, pos, pos, 100.0, sign)
+        _assert_close(qr, rope.rope_2d_plain(q, pos, 100.0, sign), rope_tol)
+        _assert_close(kr, rope.rope_2d_plain(k, pos, 100.0, sign), rope_tol)
 
 
 @pytest.mark.parametrize("d", [16, 48, 128])

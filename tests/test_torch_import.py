@@ -54,7 +54,7 @@ MODULES = [
     "spann3r_torch.habitat_gen.scripts", "spann3r_torch.tools.extract_crops",
     "spann3r_torch.tools.dataset_fixtures", "spann3r_torch.tools.croco_demo",
     "spann3r_torch.models.croco_pretrain", "spann3r_torch.pretraining",
-    "spann3r_torch.pretrain",
+    "spann3r_torch.pretrain", "spann3r_torch.tools.pretrain_profile",
 ]
 
 
