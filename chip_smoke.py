@@ -54,6 +54,27 @@ Phases, each printing its results; any failure raises and exits non-zero:
                ICP + metrics); each with its kernel launches, counted from
                0. The demo and eval CLIs need PIL and cv2: without them
                the phase fails and names the missing one;
+  14. align  - (run after phase 8, on the same model) global alignment:
+               (a) 8 frames at 512x384 BF16, the complete symmetric graph
+               (56 pairs), models.inference.inference at batch 8, K2 and
+               K3 launches by stage against pairwise_launches, then
+               global_aligner (MST init on the host) and 300 Adam steps at
+               lr 0.01 on the card: the inference ms, the host init s,
+               the median ms a step (a CUDA-event pair around each), the
+               peak memory, the accessors finite and of their shapes,
+               show() to a GLB read back (masks at the median confidence:
+               random weights stay below the demo's 3), and with cv2
+               mask_sky on that output and PairViewer on the synthetic
+               scene's first two cameras (the relative pose within 2e-2
+               of the truth); (b) the synthetic consistent scene
+               of tests/test_global_align.py at 512x384 with 8 cameras:
+               final loss, depth correlation and the distance to the
+               ground truth after a best-fit similarity within their
+               bounds, and a planted fault (two edges' pred_j swapped)
+               caught; (c) card against CPU on that scene at 64x48 with 4
+               cameras and seeded noise: final loss and points within
+               1e-3; (d) forward_mixed on a landscape and a portrait pair
+               against forward on each, the same bits;
   10. train  - (run after phase 8) the training CLI's configuration at
                full published width (224x224 DPT, random weights from
                seed 0), make_train_step on SynthRoom batches (B = 2,
@@ -98,7 +119,11 @@ Phases, each printing its results; any failure raises and exits non-zero:
                through the host: not NCCL's); (c) two full-width ranks at
                224, B = 1 x T = 5 each, --fsdp 0 and 1: the state each
                rank holds before a step against `state_bytes`, and its
-               peak memory;
+               peak memory; (d) multi-stream serving over ranks
+               (parallel.streams.scan_streams on make_mesh_for_batch): B =
+               4 streams of 8 frames at 224 FP32 at world 1 over NCCL and
+               over two gloo ranks, against four one-stream runs within
+               2e-4 abs + 1e-4 rel;
   13. pretrain - (run last) CroCo pretraining at two published
                configurations at 224, B = 64, bf16: CroCoNet() (the
                pretraining CLI's default; its decoder has head dim 32) and
@@ -121,6 +146,12 @@ Phases, each printing its results; any failure raises and exits non-zero:
                one FP32 train step of a narrow configuration with head
                dim 64 (loss and every gradient, within 1e-3 of the
                largest |grad|).
+Phase 3 also holds, for every bf16 shape of K2's backward, the kernel and
+the library's backward (F.scaled_dot_product_attention under autograd) to
+the plain bound without the flip allowance: the elements past it and the
+largest excess of each, one line a shape; the kernel may lie past it on
+at most ALLOWANCE_MARGIN elements more than the library (records under the
+sdpa_bwd record's "allowance").
 Phase 3 also holds K2 and its backward at head dim 32 (DH32_SHAPES: the
 CroCoNet() decoder at B = 64, and a ragged 20-token tile and N != M as
 extra coverage), with planted faults on the columns and the last tile
@@ -618,6 +649,8 @@ def phase_kernels(records):
     records["sdpa"]["offline"] = sdpa_offline
     records["rope2d"]["offline_encoder"] = rope_offline_encoder
     records["sdpa"]["offline_encoder"] = sdpa_offline_encoder
+    failures += [f"sdpa_bwd allowance {label}" for label, c in
+                 records["sdpa_bwd"]["allowance"].items() if not c["ok"]]
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -709,6 +742,62 @@ def bwd_rounding_intervals(q, k, v, dout, lse, scale):
     return p, d_p, ds, d_ds
 
 
+# C2: the flip term rests on the argument above; the library's backward
+# (F.scaled_dot_product_attention under autograd, which rounds P and dS to
+# bf16 too) is held to the same plain bound on the same inputs, and the
+# kernel may lie past the plain bound on at most ALLOWANCE_MARGIN elements
+# more than the library does
+ALLOWANCE_MARGIN = 4
+
+
+def past_plain_bound(outs, plains, extras, tol=TOL_BF16):
+    """(elements of outs past tol * (rms + |plain|), compare's bound
+    without its extra; how many of them lie past the extra allowance too;
+    the largest excess over the plain bound, 0 where none)."""
+    n = beyond = 0
+    worst = 0.0
+    for got, want, extra in zip(outs, plains, extras):
+        got, want = got.float(), want.float()
+        scale = want.pow(2).mean(dim=tuple(range(1, want.dim())),
+                                 keepdim=True).sqrt()
+        over = (got - want).abs() - tol * (scale + want.abs())
+        n += int((over > 0).sum())
+        beyond += int((over > extra).sum())
+        worst = max(worst, float(over.max()))
+    return n, beyond, worst
+
+
+def allowance_ok(kernel_n, library_n, margin=ALLOWANCE_MARGIN):
+    return kernel_n <= library_n + margin
+
+
+def allowance_census(label, q, k, v, dout, lse, scale, flip, records):
+    """C2 for one bf16 backward shape: the kernel's and the library's dq,
+    dk, dv against sdpa_backward_plain, each counted by past_plain_bound;
+    prints one line and records it under the sdpa_bwd record's
+    "allowance"."""
+    import torch.nn.functional as F
+
+    from spann3r_torch.ops import attention
+
+    plain = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+    kern = attention.sdpa_backward_cuda(q, k, v, dout, lse, scale)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lib = torch.autograd.grad(F.scaled_dot_product_attention(
+        ql, kl, vl, scale=scale), (ql, kl, vl), dout)
+    kn, kb, kx = past_plain_bound(kern, plain, flip)
+    ln, lb, lx = past_plain_bound(lib, plain, flip)
+    ok = allowance_ok(kn, ln) and kb == 0
+    log(f"[kernels] sdpa_bwd    allowance {label}: past the plain bound "
+        f"{TOL_BF16:g}*(rms+|plain|): kernel {kn} (largest excess {kx:.3e}, "
+        f"{kb} past the allowance), library {ln} (largest excess {lx:.3e}, "
+        f"{lb} past the allowance); kernel <= library + {ALLOWANCE_MARGIN}: "
+        f"{'ok' if ok else 'FAIL'}")
+    records["sdpa_bwd"].setdefault("allowance", {})[label] = {
+        "kernel": kn, "kernel_max_excess": kx, "library": ln,
+        "library_past_allowance": lb, "library_max_excess": lx, "ok": ok}
+
+
 def backward_cases(case, planted, dtype, randn, records):
     """K2's backward kernel against sdpa_backward_plain and K3 at sign -1
     on gradients against rope_2d_plain, on the card, with the layouts
@@ -766,6 +855,8 @@ def backward_cases(case, planted, dtype, randn, records):
             library_minus=lib_fwd)
         if main:
             records["sdpa_bwd"].setdefault("by_shape", {})[label] = rec
+            allowance_census(f"{label} {shape}", q, k, v, dout, lse, 0.125,
+                             flip, records)
             # planted faults, one in each output: dq without the last key
             # tile's terms, dk of the last key tile left out, dv without
             # the last query tile's terms
@@ -903,6 +994,8 @@ def head_dim_32_cases(case, planted, dtype, randn, records):
             library_minus=lib_fwd)
         if main:
             records["sdpa_bwd"].setdefault("head_dim_32", {})[label] = rec
+            allowance_census(f"head dim 32 {label} {shape}", q, k, v, dout,
+                             lse, scale, flip, records)
             want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
             wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse,
                                                         scale)
@@ -1063,6 +1156,8 @@ def pretrain_cases(case, planted, dtype, randn, records):
             library_minus=lib_fwd)
         if main:
             records["sdpa_bwd"].setdefault("pretrain_by_shape", {})[label] = rec
+            allowance_census(f"pretrain {label} {shape}", q, k, v, dout, lse,
+                             scale, flip, records)
             want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
             wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse,
                                                         scale)
@@ -1773,6 +1868,345 @@ def phase_entry(cfg, model, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: global alignment of pairwise pointmaps
+# ---------------------------------------------------------------------------
+
+# (a) DUSt3R's demo defaults on the full-width model: 8 frames, the complete
+# symmetric graph (56 pairs), pairwise inference at batch 8, then 300 Adam
+# steps at lr 0.01 from the MST init
+ALIGN_FRAMES = 8
+ALIGN_BATCH = 8
+ALIGN_NITER, ALIGN_LR = 300, 0.01
+# (b) the synthetic consistent scene of tests/test_global_align.py at
+# 512x384 with 8 cameras: its bounds on the final loss and on the
+# correlation of the scale-normalised distances between the same pixels of
+# the first and the last view; and the largest distance of the aligned
+# points from the ground truth after a best-fit similarity, as a fraction
+# of the scene's extent (1.1e-4 to 3.7e-4 on the CPU at 16x16 to 128x96)
+ALIGN_LOSS_BOUND = 2e-3
+ALIGN_CORR_BOUND = 0.8
+ALIGN_FIT_BOUND = 2e-3
+# (c) card against CPU on the scene at 64x48 with 4 cameras and seeded
+# noise of ALIGN_NOISE on the pairwise pointmaps (so that the energy's
+# minimum is not 0: on the exact scene the final loss is at its noise floor,
+# where one ulp of one parameter moves the JAX package's own final loss by
+# 6%, tests/test_torch_align.py): the final loss within 1e-3 relative and
+# the points within 1e-3 of the scene's extent
+ALIGN_PARITY_HW, ALIGN_PARITY_N, ALIGN_NOISE = (48, 64), 4, 0.01
+ALIGN_PARITY_TOL = 1e-3
+
+
+def pairwise_launches(cfg, n_pairs, batch=ALIGN_BATCH):
+    """K3 and K2 launches of models.inference.inference over n_pairs pairs,
+    by stage: the encoder once on all the frames, both decoders (self and
+    cross attention in every block) once a batch of pairs; no memory read."""
+    dec = 4 * cfg.dust3r.dec.depth * -(-n_pairs // batch)
+    stages = {"encoder": cfg.dust3r.enc.depth, "decoder": dec,
+              "value encoder": 0}
+    return {"rope2d": dict(stages), "sdpa": dict(stages), "memory_read": 0}
+
+
+def align_scene(n, hw, noise=0.0, seed=SEED):
+    """tests/test_global_align.py's consistent scene at n cameras and hw
+    (the focal and the depth surface scaled with the image from the test's
+    16x16): camera i turned 0.15 i about y and moved by i (0.3, 0.05, -0.1),
+    each pointmap its own smooth depth surface; exact pairwise predictions
+    over the complete symmetric graph, conf 3, plus seeded Gaussian noise
+    of `noise` on both pointmaps. Returns (inference-style output, the
+    ground-truth points (n, H, W, 3))."""
+    from spann3r_torch.models.pairs import make_pairs
+
+    h, w = hw
+    f = 20.0 * w / 16
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    poses, world = [], []
+    for i in range(n):
+        ang = 0.15 * i
+        pose = np.eye(4)
+        pose[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                        [-np.sin(ang), 0, np.cos(ang)]]
+        pose[:3, 3] = [0.3 * i, 0.05 * i, -0.1 * i]
+        depth = 2.0 + 0.3 * np.sin(u * 4.0 / w + i) * np.cos(v * 4.0 / h)
+        cam = np.stack([(u - w / 2) * depth / f, (v - h / 2) * depth / f,
+                        depth], -1)
+        poses.append(pose)
+        world.append(cam @ pose[:3, :3].T + pose[:3, 3])
+    pairs = make_pairs(n, "complete", symmetrize=True)
+    rng = np.random.default_rng(seed)
+    pred = {1: [], 2: []}
+    for a, b in pairs:
+        inv = np.linalg.inv(poses[a])
+        pred[1].append(world[a] @ inv[:3, :3].T + inv[:3, 3])
+        pred[2].append(world[b] @ inv[:3, :3].T + inv[:3, 3])
+    p1, p2 = (np.stack(pred[k]).astype(np.float32) for k in (1, 2))
+    if noise:
+        p1 += noise * rng.standard_normal(p1.shape).astype(np.float32)
+        p2 += noise * rng.standard_normal(p2.shape).astype(np.float32)
+    conf = np.full((len(pairs), h, w), 3.0, np.float32)
+    return ({"view1": {"idx": [a for a, _ in pairs]},
+             "view2": {"idx": [b for _, b in pairs]},
+             "pred1": {"pts3d": p1, "conf": conf},
+             "pred2": {"pts3d_in_other_view": p2, "conf": conf.copy()}},
+            np.stack(world))
+
+
+def swapped_edges(output):
+    """The planted fault of (b): the first two edges' pred_j swapped."""
+    out = {k: dict(v) for k, v in output.items()}
+    pj = output["pred2"]["pts3d_in_other_view"].copy()
+    pj[[0, 1]] = pj[[1, 0]]
+    out["pred2"]["pts3d_in_other_view"] = pj
+    return out
+
+
+def align_errors(aligner, world, seed=SEED):
+    """(the correlation of tests/test_global_align.py on 4096 pixels: the
+    distances between the same pixels of the first and the last view, each
+    divided by its median; the largest and the median distance of the
+    aligned points from the ground truth after a best-fit similarity, each
+    over the scene's extent)."""
+    from spann3r_torch.models.global_align import rigid_points_registration
+
+    pts = aligner.get_pts3d()
+    n = pts.shape[0]
+    a, g = pts.reshape(n, -1, 3), world.reshape(n, -1, 3)
+    sel = np.random.default_rng(seed).integers(0, a.shape[1], 4096)
+    da = np.linalg.norm(a[0][sel] - a[-1][sel], axis=-1)
+    dg = np.linalg.norm(g[0][sel] - g[-1][sel], axis=-1)
+    corr = float(np.corrcoef(da / np.median(da), dg / np.median(dg))[0, 1])
+    a, g = a.reshape(-1, 3), g.reshape(-1, 3)
+    s, rot, t = rigid_points_registration(a, g, np.ones(len(a)))
+    dist = np.linalg.norm(s * a @ rot.T.astype(np.float64) + t - g, axis=-1)
+    extent = float(np.ptp(g, axis=0).max())
+    return corr, float(dist.max()) / extent, float(np.median(dist)) / extent
+
+
+def align_ok(loss, corr, fit):
+    return (loss < ALIGN_LOSS_BOUND and corr > ALIGN_CORR_BOUND
+            and fit <= ALIGN_FIT_BOUND)
+
+
+def timed_optimize(aligner, niter=ALIGN_NITER, lr=ALIGN_LR):
+    """aligner.optimize(niter, lr) with a CUDA-event pair around each Adam
+    step: (final loss, the steps' ms, the whole call's s)."""
+    events = []
+    step = aligner._step
+
+    def timed(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(*a)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    aligner._step = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = aligner.optimize(niter, lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del aligner._step
+    return loss, [s.elapsed_time(e) for s, e in events], wall
+
+
+def check_aligned(label, aligner, n, hw, anchor=0):
+    """The accessors: finite, of their shapes; the anchor image (image 0
+    but for PairViewer's) at the identity."""
+    h, w = hw
+    outs = {"pts3d": (aligner.get_pts3d(), (n, h, w, 3)),
+            "poses": (aligner.get_im_poses(), (n, 4, 4)),
+            "focals": (aligner.get_focals(), (n,)),
+            "depthmaps": (aligner.get_depthmaps(), (n, h, w)),
+            "masks": (aligner.get_masks(), (n, h, w))}
+    for name, (x, shape) in outs.items():
+        if x.shape != shape or not np.isfinite(x).all():
+            raise AssertionError(f"[align] {label} {name}: shape {x.shape} "
+                                 f"(want {shape}) or not finite")
+    if not (outs["focals"][0] > 0).all() or not (outs["depthmaps"][0] > 0).all():
+        raise AssertionError(f"[align] {label}: focals or depths not > 0")
+    if not np.allclose(outs["poses"][0][anchor], np.eye(4), atol=1e-6):
+        raise AssertionError(f"[align] {label}: image {anchor} not at the "
+                             f"identity")
+    return outs
+
+
+def phase_align(records, cfg, model, card):
+    """(a) pairwise inference and global alignment at full width, (b) the
+    synthetic scene and its planted fault, (c) card against CPU, (d)
+    forward_mixed against forward."""
+    import tempfile
+
+    from spann3r_torch import config
+    from spann3r_torch.models import dust3r as d3
+    from spann3r_torch.models.global_align import (MODE_PAIR_VIEWER,
+                                                   global_aligner)
+    from spann3r_torch.models.inference import inference
+    from spann3r_torch.models.pairs import make_pairs
+    from spann3r_torch.ops import _kernels
+    from spann3r_torch.utils.export import read_glb
+
+    t_phase = time.perf_counter()
+    n, (h, w) = ALIGN_FRAMES, HW_512
+    frames = make_frames(n, HW_512, seed=SEED + 5).astype(np.float32)
+    frames = frames / 127.5 - 1.0
+    views = [{"img": frames[i], "idx": i} for i in range(n)]
+    pairs = make_pairs(views, "complete", symmetrize=True)
+
+    # (a) the main path: counts set to 0 just before, read just after
+    with ShapeTally() as tally:
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        output = inference(pairs, model.dust3r, cfg.dust3r, ALIGN_BATCH,
+                           config.BF16, verbose=False)
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        # random weights give confidences below the demo's min_conf_thr of
+        # 3 (the masks would keep no point): the median confidence instead
+        thr = float(np.median(output["pred1"]["conf"]))
+        t0 = time.perf_counter()
+        aligner = global_aligner(output, min_conf_thr=thr, device="cuda")
+        init_s = time.perf_counter() - t0
+        loss, step_ms, align_s = timed_optimize(aligner)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+    want = pairwise_launches(cfg, len(pairs))
+    stages = {k: tally.by_stage(k, cfg, n) for k in ("rope2d", "sdpa")}
+    log(f"[align] {n} frames 512x384 BF16, {len(pairs)} pairs (complete, "
+        f"symmetric), batch {ALIGN_BATCH}: pairwise inference "
+        f"{infer_ms:.1f} ms; launches {counts} by stage {stages} (expected "
+        f"{want}); host init (MST) {init_s:.2f} s; {ALIGN_NITER} Adam steps "
+        f"at lr {ALIGN_LR}: {statistics.median(step_ms):.3f} ms a step "
+        f"(median; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+        f"{align_s:.2f} s in all, final loss {loss:.6f}; peak "
+        f"{peak:.3f} GiB over the {held / 2 ** 30:.3f} GiB held before; "
+        f"{card}")
+    for k in ("rope2d", "sdpa"):
+        if stages[k] != want[k] or counts[k] != sum(want[k].values()):
+            raise AssertionError(f"[align] {k} launches {counts[k]} by stage "
+                                 f"{stages[k]}, expected {want[k]}")
+    if counts["memory_read"] != 0:
+        raise AssertionError(f"[align] memory_read launched "
+                             f"{counts['memory_read']} times")
+    for k in ("rope2d", "sdpa"):
+        records[k]["align_launches"] = counts[k]
+    if not np.isfinite(loss):
+        raise AssertionError(f"[align] final loss {loss}")
+    outs = check_aligned("full width", aligner, n, HW_512)
+    imgs = [(f[0] + 1.0) / 2.0 for f in frames]
+    with tempfile.TemporaryDirectory(prefix="spann3r_align_") as tmp:
+        glb = read_glb(aligner.show(imgs=imgs, path=os.path.join(tmp,
+                                                                 "scene.glb")))
+    modes = sorted(p["mode"] for p in glb["primitives"])
+    pts = next((p for p in glb["primitives"] if p["mode"] == 0), None)
+    n_mask = int(outs["masks"][0].sum())
+    if (n_mask == 0 or modes != [0, 4] or pts is None
+            or len(pts["positions"]) != n_mask):
+        raise AssertionError(f"[align] GLB primitives {modes}, points "
+                             f"{None if pts is None else len(pts['positions'])}"
+                             f" (want {n_mask})")
+    log(f"[align] outputs ok: pts3d ({n},{h},{w},3), poses, focals "
+        f"{np.round(outs['focals'][0], 1).tolist()}, depthmaps finite; masks "
+        f"at min_conf_thr {thr:.4f} (the median confidence) keep {n_mask} "
+        f"of {n * h * w} points; show() wrote a GLB of {n_mask} points and "
+        f"the camera frusta, read back")
+    if "cv2" in missing_host_packages():
+        log("[align] cv2 missing on this host: mask_sky and PairViewer "
+            "skipped")
+    else:
+        sky = aligner.mask_sky(imgs).get_masks()
+        # PairViewer solves a pair directly (PnP): on the synthetic scene's
+        # first two cameras, where the relative pose is known (random
+        # weights give no pose to check)
+        pv = global_aligner(align_scene(2, HW_512)[0], mode=MODE_PAIR_VIEWER,
+                            device="cuda")
+        check_aligned("PairViewer", pv, 2, HW_512, pv.anchor)
+        ang = 0.15
+        gt = np.eye(4)
+        gt[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]]
+        gt[:3, 3] = [0.3, 0.05, -0.1]
+        gt = np.linalg.inv(gt) if pv.anchor == 1 else gt
+        pose_err = float(np.abs(pv.get_im_poses()[1 - pv.anchor] - gt).max())
+        log(f"[align] mask_sky keeps {int(sky.sum())} of {n_mask} points; "
+            f"PairViewer on the synthetic scene's cameras 0, 1: anchor "
+            f"{pv.anchor}, relative pose off the truth by {pose_err:.3e} "
+            f"(bound 2e-2, tests/test_global_align.py's)")
+        if pose_err > 2e-2:
+            raise AssertionError("[align] PairViewer's pose is off")
+    del aligner, output
+    torch.cuda.empty_cache()
+
+    # (b) the synthetic scene, then its planted fault
+    res = {}
+    for name, fault in (("scene", False), ("swapped pred_j", True)):
+        out, world = align_scene(n, HW_512)
+        if fault:
+            out = swapped_edges(out)
+        al = global_aligner(out, device="cuda")
+        l0 = float(al._loss(al.params, al._data()))
+        loss = al.optimize(ALIGN_NITER, ALIGN_LR)
+        corr, fit, fit_med = align_errors(al, world)
+        res[name] = align_ok(loss, corr, fit)
+        log(f"[align] synthetic {name} ({n} cameras, 512x384): loss "
+            f"{l0:.3e} at the MST init -> {loss:.3e} (bound "
+            f"{ALIGN_LOSS_BOUND:g}), correlation {corr:.6f} (bound "
+            f"{ALIGN_CORR_BOUND:g}), after a best-fit similarity largest "
+            f"distance {fit:.3e} of the extent (bound {ALIGN_FIT_BOUND:g}), "
+            f"median {fit_med:.3e}: "
+            f"{('caught' if not res[name] else 'MISSED') if fault else ('ok' if res[name] else 'FAIL')}")
+        del al
+    if not res["scene"] or res["swapped pred_j"]:
+        raise AssertionError(f"[align] synthetic scene checks {res}")
+
+    # (c) card against CPU on the noisy scene
+    out, world = align_scene(ALIGN_PARITY_N, ALIGN_PARITY_HW, ALIGN_NOISE)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        al = global_aligner(out, device=dev)
+        runs[dev] = (al.optimize(ALIGN_NITER, ALIGN_LR), al.get_pts3d())
+    extent = float(np.ptp(world.reshape(-1, 3), axis=0).max())
+    dl = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    dp = float(np.abs(runs["cuda"][1] - runs["cpu"][1]).max()) / extent
+    ok = dl <= ALIGN_PARITY_TOL and dp <= ALIGN_PARITY_TOL
+    log(f"[align] card against CPU ({ALIGN_PARITY_N} cameras, 64x48, noise "
+        f"{ALIGN_NOISE}, {ALIGN_NITER} steps): final loss {runs['cuda'][0]:.6f}"
+        f" / {runs['cpu'][0]:.6f}, rel {dl:.3e}; points {dp:.3e} of the "
+        f"extent (bound {ALIGN_PARITY_TOL:g}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[align] card and CPU disagree")
+
+    # (d) forward_mixed on a landscape and a portrait pair against forward
+    img1 = np.concatenate([frames[0], frames[2]])
+    img2 = np.concatenate([frames[1], frames[3]])
+    shapes = np.array([[h, w], [w, h]], np.int32)
+    r1, r2 = d3.forward_mixed(model.dust3r, img1, img2, shapes, shapes,
+                              cfg.dust3r, config.BF16)
+    same = True
+    for i, tr in ((0, lambda a: a), (1, lambda a: a.swapaxes(1, 2))):
+        f1, f2 = d3.forward(model.dust3r, torch.from_numpy(np.ascontiguousarray(
+            tr(img1[i:i + 1]))).cuda(), torch.from_numpy(np.ascontiguousarray(
+                tr(img2[i:i + 1]))).cuda(), cfg.dust3r, config.BF16)
+        for got, ref in ((r1, f1), (r2, f2)):
+            for k, x in ref.items():
+                same = same and np.array_equal(
+                    got[k][i], tr(x.cpu().numpy())[0])
+    log(f"[align] forward_mixed (landscape, portrait) at 512x384 against "
+        f"forward on each pair, the portrait one transposed: "
+        f"{'the same bits' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("[align] forward_mixed differs from forward")
+    log(f"[align] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 10: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2382,6 +2816,13 @@ DIST_MIN_DIM = 256
 # gradients and moments: peak memory per rank under --fsdp 0 and 1
 MEM_STEPS = 2
 DIST_WORKER_TIMEOUT = 600
+# (d) multi-stream serving over ranks: B = 4 streams of 8 frames at 224,
+# FP32, the full-width model, dealt by make_mesh_for_batch (world 1 over
+# NCCL: one rank takes all four; two ranks over gloo: two each), the
+# gathered results against four one-stream runs within the bound of
+# tests/test_sharded_inference.py
+STREAMS_B, STREAMS_T = 4, 8
+STREAMS_ATOL, STREAMS_RTOL = 2e-4, 1e-4
 
 
 def rank_part(batch, rank, n):
@@ -2560,7 +3001,8 @@ def _dist_steps(model, cfg, mesh, fsdp, batches):
 
 def dist_world1():
     """(a): phase 10's configuration at world 1 over NCCL: one process,
-    --fsdp 0, --fsdp 1, one process again, on the same batches."""
+    --fsdp 0, --fsdp 1, one process again, on the same batches; then (d)
+    at world 1."""
     import torch.distributed as dist
 
     from spann3r_torch import config
@@ -2605,11 +3047,64 @@ def dist_world1():
     if not same_ref:
         raise AssertionError("two one-process runs on the card differ: the "
                              "bit check cannot be made")
+    del model, runs, ref
+    torch.cuda.empty_cache()
+    dist_streams(torch.device("cuda"), "world 1 over NCCL")
     dist.destroy_process_group()
 
 
+def dist_streams(dev, label):
+    """(d): the streams through parallel.streams.scan_streams over the
+    mesh of make_mesh_for_batch; on rank 0, against each stream alone."""
+    import torch.distributed as dist
+
+    from spann3r_torch import config
+    from spann3r_torch.models import spann3r as sp
+    from spann3r_torch.parallel import mesh as pmesh
+    from spann3r_torch.parallel.streams import scan_streams
+
+    cfg = config.Spann3RConfig(dust3r=config.DUSt3RConfig(img_size=HW_224,
+                                                          head_type="dpt"))
+    model = sp.build_spann3r(cfg, dev, torch.Generator().manual_seed(SEED))
+    frames = make_frames(STREAMS_T * STREAMS_B, HW_224, seed=SEED + 50)
+    frames = frames.reshape(STREAMS_T, STREAMS_B, *HW_224, 3)
+    mesh = pmesh.make_mesh_for_batch(STREAMS_B)
+    run = lambda f, m: scan_streams(model, cfg, f, HW_224, config.FP32, m,
+                                    chunk=STREAMS_T)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(frames, mesh)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if dist.get_rank() != 0:
+        return
+    worst = 0.0
+    ok = True
+    for b in range(STREAMS_B):
+        ref = run(frames[:, b:b + 1], None)
+        ok = ok and np.array_equal(got["emitted"], ref["emitted"])
+        em = ref["emitted"]
+        for k, g, r in (("pts3d", got["pts3d"][em, b], ref["pts3d"][em, 0]),
+                        ("conf", got["conf"][em, b], ref["conf"][em, 0]),
+                        ("pts3d_2", got["pts3d_2"][b], ref["pts3d_2"][0]),
+                        ("conf_2", got["conf_2"][b], ref["conf_2"][0])):
+            err = np.abs(g - r)
+            ok = ok and bool((err <= STREAMS_ATOL + STREAMS_RTOL
+                              * np.abs(r)).all())
+            worst = max(worst, float(err.max()))
+    print(f"[dist] streams {label}: B={STREAMS_B} streams of {STREAMS_T} "
+          f"frames at 224 FP32 over {mesh.data} data rank(s), "
+          f"{STREAMS_B // mesh.data} each, in {wall:.1f} ms; pts3d, conf, "
+          f"emitted and the deferred head 2 against {STREAMS_B} one-stream "
+          f"runs: max abs err {worst:.3e} (bound {STREAMS_ATOL:g} abs + "
+          f"{STREAMS_RTOL:g} rel) {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"streams {label}: the gathered streams differ "
+                             f"from the one-stream runs")
+
+
 def dist_gloo2():
-    """(b) and (c): two ranks on the one card over gloo."""
+    """(b), (c) and (d): two ranks on the one card over gloo."""
     import torch.distributed as dist
 
     from spann3r_torch.parallel import mesh as pmesh
@@ -2620,6 +3115,7 @@ def dist_gloo2():
             f"{torch.__version__}")
     _gloo_layouts(dev)
     _gloo_memory(dev)
+    dist_streams(dev, "two ranks over gloo")
     dist.destroy_process_group()
 
 
@@ -3005,6 +3501,7 @@ def main():
     phase_engine(cfg, model)
     phase_serving(cfg, model, card)
     phase_entry(cfg, model, card)
+    phase_align(records, cfg, model, card)
     del model
     torch.cuda.empty_cache()
     train_ms = phase_train(records, card)

@@ -160,9 +160,13 @@ class ResizedDataset(EasyDataset):
         perm = rng.permutation(len(self.dataset))
         reps = 1 + (len(self) - 1) // len(self.dataset)
         self._idxs_mapping = np.concatenate([perm] * reps)[:self.new_size]
+        if hasattr(self.dataset, "set_epoch"):  # a nested mixture's maps
+            self.dataset.set_epoch(epoch)
 
     def set_ratio(self, train_ratio):
         self.dataset.train_ratio = train_ratio
+        if hasattr(self.dataset, "set_ratio"):  # and a nested mixture's
+            self.dataset.set_ratio(train_ratio)
 
     def __getitem__(self, idx):
         assert hasattr(self, "_idxs_mapping"), "call set_epoch() first"

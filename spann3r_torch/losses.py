@@ -1,9 +1,9 @@
 """Sequence regression losses (ref spann3r/loss.py + dust3r/losses.py), in
 PyTorch: the training criterion (`conf_loss_t` over `regr3d_t_frame_losses`,
 with the normalisation options of `get_all_pts3d_t`) and the eval
-alignment criterion (`regr3d_t_scale_shift_inv`). The pair losses and
-`find_opt_scaling` of the JAX package (pretraining, global alignment) are
-not ported yet.
+alignment criterion (`regr3d_t_scale_shift_inv`); and the two-view
+(pairwise DUSt3R) losses `regr3d_pair` and `conf_loss_pair`, with the
+optimal-scale fit `find_opt_scaling`.
 
 Over several processes (`group`: the data group of parallel/mesh.py)
 each rank holds its part of the batch, and the criterion's batch-wide
@@ -29,7 +29,7 @@ import torch
 
 from .parallel.mesh import all_reduce_sum
 from .utils.geometry import geotrf, inv_se3
-from .utils.masked import masked_median, sum_ratio
+from .utils.masked import masked_mean, masked_median, sum_ratio
 
 
 def l21(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -262,3 +262,89 @@ def conf_loss_t(gts: Dict, preds: Dict, alpha: float = 0.4, group=None,
                    conf_loss_2=conf_losses[1],
                    conf_mean=conf_sum / len(losses))
     return loss, details, factor_loss
+
+
+# ---------------------------------------------------------------------------
+# two-view (pairwise DUSt3R-style) losses (ref dust3r/losses.py:140-236)
+# ---------------------------------------------------------------------------
+
+def _normalize_pair(pts1, pts2, valid1, valid2):
+    """avg_dis joint normalization of a two-view pair
+    (ref dust3r/utils/geometry.py:246-304), a denominator per sample."""
+    d1 = torch.linalg.vector_norm(pts1, dim=-1) * valid1.to(pts1.dtype)
+    d2 = torch.linalg.vector_norm(pts2, dim=-1) * valid2.to(pts2.dtype)
+    nnz = valid1.sum(dim=(-2, -1)) + valid2.sum(dim=(-2, -1))
+    factor = (d1.sum(dim=(-2, -1)) + d2.sum(dim=(-2, -1))) / (nnz + 1e-8)
+    factor = factor.clamp(min=1e-8)[:, None, None, None]
+    return pts1 / factor, pts2 / factor
+
+
+def regr3d_pair(gt1: Dict, gt2: Dict, pred1: Dict, pred2: Dict,
+                norm_mode: bool = True, gt_scale: bool = False):
+    """Two-view Regr3D (ref dust3r/losses.py:156-192): per-pixel L21 on both
+    views in camera-1 coordinates. Returns (l1, l2, mask1, mask2)."""
+    in_cam1 = inv_se3(gt1["camera_pose"])
+    gt_pts1 = geotrf(in_cam1, gt1["pts3d"])
+    gt_pts2 = geotrf(in_cam1, gt2["pts3d"])
+    v1, v2 = gt1["valid_mask"], gt2["valid_mask"]
+    pr1, pr2 = pred1["pts3d"], pred2["pts3d_in_other_view"]
+    if norm_mode:
+        pr1, pr2 = _normalize_pair(pr1, pr2, v1, v2)
+        if not gt_scale:
+            gt_pts1, gt_pts2 = _normalize_pair(gt_pts1, gt_pts2, v1, v2)
+    return l21(pr1, gt_pts1), l21(pr2, gt_pts2), v1, v2
+
+
+def conf_loss_pair(gt1, gt2, pred1, pred2, alpha: float = 0.2, **kw):
+    """Two-view ConfLoss (ref dust3r/losses.py:195-236)."""
+    l1, l2, m1, m2 = regr3d_pair(gt1, gt2, pred1, pred2, **kw)
+    c1, c2 = pred1["conf"], pred2["conf"]
+    cl1 = masked_mean(l1 * c1 - alpha * torch.log(c1), m1)
+    cl2 = masked_mean(l2 * c2 - alpha * torch.log(c2), m2)
+    return cl1 + cl2, {"conf_loss_1": cl1, "conf_loss2": cl2}
+
+
+def find_opt_scaling(gt_pts1, gt_pts2, pr_pts1, pr_pts2=None,
+                     fit_mode: str = "weiszfeld_stop_grad",
+                     valid1=None, valid2=None) -> torch.Tensor:
+    """Optimal gt->pred scale (B,) via mean / median / Weiszfeld IRLS
+    (ref dust3r/inference.py:112-156)."""
+    def flat(p, v):
+        pf = p.reshape(p.shape[0], -1, 3)
+        vf = (v.reshape(p.shape[0], -1) if v is not None else
+              torch.ones(pf.shape[:2], dtype=torch.bool, device=p.device))
+        return pf, vf
+
+    gt, m = flat(gt_pts1, valid1)
+    pr, _ = flat(pr_pts1, valid1)
+    if gt_pts2 is not None:
+        g2, m2 = flat(gt_pts2, valid2)
+        p2, _ = flat(pr_pts2, valid2)
+        gt, pr, m = (torch.cat([gt, g2], 1), torch.cat([pr, p2], 1),
+                     torch.cat([m, m2], 1))
+
+    dot_gp = (pr * gt).sum(-1)
+    dot_gg = gt.square().sum(-1)
+
+    def ratio(w):
+        return masked_mean(w * dot_gp, m, axis=1) / \
+            masked_mean(w * dot_gg, m, axis=1).clamp(min=1e-12)
+
+    if fit_mode.startswith("avg"):
+        scaling = ratio(1.0)
+    elif fit_mode.startswith("median"):
+        scaling = masked_median(torch.where(
+            m, dot_gp / dot_gg.clamp(min=1e-12), torch.zeros_like(dot_gp)),
+            m, axis=-1)
+    elif fit_mode.startswith("weiszfeld"):
+        scaling = ratio(1.0)
+        for _ in range(10):
+            dis = torch.linalg.vector_norm(pr - scaling[:, None, None] * gt,
+                                           dim=-1)
+            scaling = ratio(1.0 / dis.clamp(min=1e-8))
+    else:
+        raise ValueError(f"bad fit_mode {fit_mode}")
+
+    if fit_mode.endswith("stop_grad"):
+        scaling = scaling.detach()
+    return scaling.clamp(min=1e-3)

@@ -1,8 +1,9 @@
 """Two-view pointmap backbone: patch embed, ViT encoder, dual decoder and
 the two pointmap heads (module keys `patch_embed`, `enc_blocks.{i}`,
 `enc_norm`, `decoder_embed`, `dec_blocks.{i}`, `dec_blocks2.{i}`,
-`dec_norm`, `downstream_head1`, `downstream_head2`), and the two-view
-forward that pairwise inference runs."""
+`dec_norm`, `downstream_head1`, `downstream_head2`), the two-view
+forward that pairwise inference runs, and `forward_mixed` for batches of
+portrait and landscape pairs."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -124,3 +125,47 @@ def forward(m: DUSt3R, img1: torch.Tensor, img2: torch.Tensor,
     res2 = downstream_head(m, 2, dec2, hw2, cfg, prec)
     res2["pts3d_in_other_view"] = res2.pop("pts3d")
     return res1, res2
+
+
+def forward_mixed(m: DUSt3R, img1, img2, true_shape1, true_shape2,
+                  cfg: DUSt3RConfig, prec: Precision = BF16
+                  ) -> Tuple[Dict, Dict]:
+    """Mixed portrait/landscape batches (ref ManyAR_PatchEmbed +
+    transpose_to_landscape, dust3r/utils/misc.py:54-96), as the JAX
+    package's `forward_mixed`: the pairs are grouped by (portrait1,
+    portrait2), at most four groups; a portrait view is transposed to
+    landscape, run through `forward` with its group, and its outputs
+    transposed back.
+
+    img1/img2: (B, H, W, 3) numpy with W >= H (portrait content pre-rotated
+    by the data pipeline); true_shape*: (B, 2) int (h, w) actual shapes.
+    Returns (res1, res2) of stacked fp32 numpy arrays, one row per pair."""
+    import numpy as np
+
+    img1, img2 = np.asarray(img1), np.asarray(img2)
+    land1 = np.asarray(true_shape1)[:, 1] >= np.asarray(true_shape1)[:, 0]
+    land2 = np.asarray(true_shape2)[:, 1] >= np.asarray(true_shape2)[:, 0]
+    dev = next(m.parameters()).device
+    res1_out: list = [None] * img1.shape[0]
+    res2_out: list = [None] * img1.shape[0]
+    for p1 in (False, True):
+        for p2 in (False, True):
+            sel = np.nonzero((land1 != p1) & (land2 != p2))[0]
+            if len(sel) == 0:
+                continue
+            a1 = img1[sel].swapaxes(1, 2) if p1 else img1[sel]
+            a2 = img2[sel].swapaxes(1, 2) if p2 else img2[sel]
+            r1, r2 = forward(m, torch.from_numpy(np.ascontiguousarray(a1)).to(dev),
+                             torch.from_numpy(np.ascontiguousarray(a2)).to(dev),
+                             cfg, prec)
+            r1 = {k: v.cpu().numpy() for k, v in r1.items()}
+            r2 = {k: v.cpu().numpy() for k, v in r2.items()}
+            if p1:
+                r1 = {k: v.swapaxes(1, 2) for k, v in r1.items()}
+            if p2:
+                r2 = {k: v.swapaxes(1, 2) for k, v in r2.items()}
+            for n, bi in enumerate(sel):
+                res1_out[bi] = {k: v[n] for k, v in r1.items()}
+                res2_out[bi] = {k: v[n] for k, v in r2.items()}
+    stack = lambda lst: {k: np.stack([d[k] for d in lst]) for k in lst[0]}
+    return stack(res1_out), stack(res2_out)

@@ -1,2 +1,4 @@
-"""Multi-process training: the process mesh and its collectives (`mesh`),
-and how each rank holds the model's parameters over it (`sharding`)."""
+"""Multi-process training and serving: the process mesh and its
+collectives (`mesh`), how each rank holds the model's parameters over it
+(`sharding`), and independent video streams dealt over the ranks
+(`streams`)."""

@@ -21,6 +21,14 @@ loss's batch-wide statistics over the data group, so that each rank's
 backward yields the derivative through its own samples only, and closes a
 row-parallel product over the model group; `copy_to_group` (the identity
 forward, the gradient summed over the group) opens a column-parallel one.
+
+The stream half serves independent video streams over the ranks:
+`make_mesh_for_batch` takes the largest data size that divides the
+number of streams (a subset of the ranks, as JAX takes a subset of its
+devices), `batch_block` / `shard_batch` give a rank its contiguous block
+of the (T, B, ...) batch axis (JAX's `batch_sharding`; the rest is
+`replicated`, whole on every rank), and `gather_streams` puts the ranks'
+blocks back in stream order (`parallel/streams.py` runs the scan).
 """
 from __future__ import annotations
 
@@ -112,6 +120,65 @@ def make_mesh(model: int = 1) -> Mesh:
     return Mesh(world // model, model, dm.get_local_rank("data"),
                 dm.get_local_rank("model"), dm.get_group("data"),
                 dm.get_group("model"))
+
+
+def data_for_batch(batch_size: int, avail: int) -> int:
+    """The largest data size of at most `avail` ranks that divides
+    batch_size (JAX make_mesh_for_batch's choice)."""
+    return max(d for d in range(1, avail + 1) if batch_size % d == 0)
+
+
+def make_mesh_for_batch(batch_size: int, model: int = 1) -> Optional[Mesh]:
+    """The data x model mesh whose data axis divides batch_size, over the
+    first data * model ranks (JAX make_mesh_for_batch: a subset of the
+    devices when the batch has fewer streams than the world has data
+    ranks). Every rank of the group must call it, as `new_group` requires;
+    a rank outside the subset gets None and takes no streams."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model < 1 or world % model:
+        raise ValueError(f"model axis {model} does not divide the world "
+                         f"size {world}")
+    data = data_for_batch(batch_size, world // model)
+    if not dist.is_initialized():
+        return Mesh(1, 1, 0, 0, None, None)
+    data_groups = [dist.new_group([d * model + m for d in range(data)])
+                   for m in range(model)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)])
+                    for d in range(data)]
+    rank = dist.get_rank()
+    if rank >= data * model:
+        return None
+    return Mesh(data, model, rank // model, rank % model,
+                data_groups[rank % model], model_groups[rank // model])
+
+
+def batch_block(mesh: Mesh, batch_size: int) -> slice:
+    """This data rank's contiguous block of a batch axis of batch_size
+    (JAX batch_sharding: the batch axis split over 'data')."""
+    b = batch_size // mesh.data
+    return slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+
+
+def shard_batch(mesh: Mesh, batch):
+    """This rank's part of a host batch {name: (T, B, ...)}: its block of
+    axis 1 of each array of 2+ dimensions; the others whole (JAX's
+    replicated)."""
+    def part(x):
+        x = np.asarray(x)
+        return x[:, batch_block(mesh, x.shape[1])] if x.ndim >= 2 else x
+
+    return {k: part(v) for k, v in batch.items()}
+
+
+def gather_streams(mesh: Mesh, a: np.ndarray) -> np.ndarray:
+    """(T, B, ...) in stream order from each data rank's (T, b, ...) block
+    (every rank of the data group must call it); `a` as it is in one
+    process."""
+    if mesh.data_group is None:
+        return a
+    st = mesh.gather_numpy(a)                       # (data, T, b, ...)
+    st = np.moveaxis(st, 0, 1)
+    return st.reshape(st.shape[0], -1, *st.shape[3:])
 
 
 def gather_numpy(a: np.ndarray, group: Optional[dist.ProcessGroup],

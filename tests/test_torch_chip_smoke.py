@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -638,3 +639,100 @@ def test_phase3_holds_the_pretrain_attention_shapes(monkeypatch, name):
     want_rope = {(h, n, m, d, lay, n == 196)
                  for _, _, h, n, m, d, lay, r in ours if r}
     assert rotated == want_rope
+
+
+# ---------------------------------------------------------------------------
+# phase 14 (align) and phase 3's allowance census (C2)
+# ---------------------------------------------------------------------------
+
+def test_align_scene_is_the_jax_tests_scene():
+    """At the JAX test's 16x16 and 3 cameras, phase 14's scene is
+    tests/test_global_align.py's, bit for bit."""
+    import tests.test_global_align as JT
+
+    out, world = chip_smoke.align_scene(JT.N, (JT.H, JT.W))
+    want, want_world = JT._make_scene(None)
+    np.testing.assert_array_equal(world, np.stack(want_world))
+    for view, keys in (("view1", ("idx",)), ("view2", ("idx",)),
+                       ("pred1", ("pts3d", "conf")),
+                       ("pred2", ("pts3d_in_other_view", "conf"))):
+        for k in keys:
+            np.testing.assert_array_equal(np.asarray(out[view][k]),
+                                          np.asarray(want[view][k]))
+
+
+def test_align_check_catches_the_planted_fault():
+    """Phase 14's check passes the aligned scene and rejects it with two
+    edges' pred_j swapped (on the CPU at 64x48, 4 cameras)."""
+    from spann3r_torch.models.global_align import global_aligner
+
+    torch.set_num_threads(1)
+    n, hw = chip_smoke.ALIGN_PARITY_N, chip_smoke.ALIGN_PARITY_HW
+    out, world = chip_smoke.align_scene(n, hw)
+    verdicts = []
+    for o in (out, chip_smoke.swapped_edges(out)):
+        al = global_aligner(o, device="cpu")
+        loss = al.optimize(chip_smoke.ALIGN_NITER, chip_smoke.ALIGN_LR)
+        corr, fit, _ = chip_smoke.align_errors(al, world)
+        verdicts.append(chip_smoke.align_ok(loss, corr, fit))
+    assert verdicts == [True, False]
+    # the fault leaves the scene itself untouched
+    assert not np.array_equal(chip_smoke.swapped_edges(out)["pred2"][
+        "pts3d_in_other_view"], out["pred2"]["pts3d_in_other_view"])
+
+
+@pytest.mark.parametrize("n,batch", [(4, 8), (3, 4)])
+def test_pairwise_launch_counts(counting_kernels, n, batch):
+    """Phase 14's expected launches (pairwise_launches) are what pairwise
+    inference launches, stage by stage, on a tiny model whose decoders have
+    their own head count, with a short last batch."""
+    from spann3r_torch import config as C
+    from spann3r_torch.models import inference, pairs
+    from spann3r_torch.models import spann3r as S
+
+    cfg = C.Spann3RConfig(
+        dust3r=C.DUSt3RConfig(img_size=(32, 32), patch_size=16,
+                              enc=C.ViTConfig(dim=64, depth=2, num_heads=4),
+                              dec=C.ViTConfig(dim=48, depth=3, num_heads=2),
+                              head_type="linear"),
+        value_enc_depth=2, value_enc_dim=64, value_enc_heads=4,
+        attn_head_in=64 + 48, attn_head_out=64)
+    model = S.build_spann3r(cfg, "cpu", torch.Generator().manual_seed(0))
+    views = [{"img": (_randn(1, 32, 32, 3, seed=30 + i) * 0.3).numpy(),
+              "idx": i} for i in range(n)]
+    prs = pairs.make_pairs(views, "complete", symmetrize=True)
+    with chip_smoke.ShapeTally() as tally:
+        out = inference.inference(prs, model.dust3r, cfg.dust3r, batch,
+                                  C.FP32, verbose=False)
+    assert out["pred1"]["pts3d"].shape == (len(prs), 32, 32, 3)
+    want = chip_smoke.pairwise_launches(cfg, len(prs), batch)
+    counts = counting_kernels.launch_counts()
+    assert counts["memory_read"] == want["memory_read"] == 0
+    for k in ("rope2d", "sdpa"):
+        assert tally.by_stage(k, cfg, n) == want[k]
+        assert counts[k] == sum(want[k].values())
+
+
+def test_allowance_census_rejects_a_kernel_past_the_library():
+    """C2: past_plain_bound counts the elements past the plain bound and
+    those past the allowance too; the check passes a kernel that needs the
+    allowance on no more elements than the library's lies past the plain
+    bound (plus the margin), and rejects one that needs it on more."""
+    plain = (_randn(2, 4, 64, 32, seed=40) * 0.1,)
+    base = chip_smoke.TOL_BF16 * (plain[0].pow(2).mean(
+        dim=(1, 2, 3), keepdim=True).sqrt() + plain[0].abs())
+    allowance = (torch.full_like(plain[0], 1e-2),)
+    library = (plain[0].to(torch.bfloat16),)       # one rounding: within
+    kernel = plain[0].clone()
+    flat = kernel.view(-1)
+    k = chip_smoke.ALLOWANCE_MARGIN + 3
+    flat[:k] += base.expand_as(kernel).reshape(-1)[:k] + 1e-3
+    n, beyond, worst = chip_smoke.past_plain_bound((kernel,), plain, allowance)
+    assert (n, beyond) == (k, 0) and 0.9e-3 < worst < 1.1e-3
+    assert chip_smoke.past_plain_bound(library, plain, allowance)[0] == 0
+    assert not chip_smoke.allowance_ok(n, 0)
+    assert chip_smoke.allowance_ok(chip_smoke.ALLOWANCE_MARGIN, 0)
+    assert chip_smoke.allowance_ok(n, n - chip_smoke.ALLOWANCE_MARGIN)
+    # past the allowance too
+    flat[0] += 1.0
+    assert chip_smoke.past_plain_bound((kernel,), plain, allowance)[1] == 1

@@ -207,3 +207,31 @@ def test_extract_crops_matches_jax(tmp_path):
             np.testing.assert_array_equal(
                 np.asarray(PIL.Image.open(osp.join(outs["t"], p + s))),
                 np.asarray(PIL.Image.open(osp.join(outs["j"], p + s))))
+
+
+def test_nested_mixture_draws_each_epoch(trees):
+    """`2 @ (100 @ A + 100 @ B)`: the outer map picks an item of the inner
+    mixture, which draws its own maps each epoch, so that an item of the
+    nested expression is the flat mixture's item at the outer map's index,
+    and the items move between epochs as the flat mixture's do. The JAX
+    copy never sets the inner maps and refuses the first item."""
+    inner = " + ".join(F.expression(k, trees[k], 100, RES)
+                       for k in ("Co3d", "BlendMVS"))
+    nested, flat = t_build(f"2 @ ({inner})"), t_build(inner)
+    jax_nested = j_build(f"2 @ ({inner})")
+    jax_nested.set_epoch(0)
+    with pytest.raises(AssertionError, match="set_epoch"):
+        jax_nested[0]
+    got = []
+    for epoch in (0, 1):
+        for ds in (nested, flat):
+            ds.set_epoch(epoch)
+            ds.set_ratio(0.5)
+        assert [d.dataset.train_ratio for d in nested.dataset.datasets] == \
+            [0.5, 0.5]
+        i = int(nested._idxs_mapping[0])
+        views = nested[0]
+        _assert_same_views(views, flat[i])
+        got.append(views)
+    assert any(not np.array_equal(a["img"], b["img"])
+               for a, b in zip(*got))

@@ -51,10 +51,18 @@ COPIES = [
     "datasets/blendedmvs.py", "datasets/co3d.py", "datasets/habitat.py",
     "habitat_gen/generator.py", "habitat_gen/scripts.py", "datasets/pairs.py",
     "tools/extract_crops.py", "habitat_gen/__init__.py",
+    "tools/render_dtu.py", "utils/viz3d.py",
 ]
 # the native library builds beside the port's kernels, under a name that
 # is renamed into place
 PORT_ONLY_LINES = {
+    # a nested mixture, N @ (A + B), draws its inner maps each epoch and
+    # follows the curriculum (the JAX copy leaves its inner datasets alone)
+    "datasets/base.py": {
+        'if hasattr(self.dataset, "set_epoch"):  # a nested mixture\'s maps',
+        "self.dataset.set_epoch(epoch)",
+        'if hasattr(self.dataset, "set_ratio"):  # and a nested mixture\'s',
+        "self.dataset.set_ratio(train_ratio)"},
     # the commands it prints name the port's CLI
     "habitat_gen/scripts.py": {
         'f"{prefix}python -m spann3r_torch.habitat_gen.scripts "',
