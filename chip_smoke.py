@@ -138,6 +138,23 @@ Phases, each printing its results; any failure raises and exits non-zero:
                checkpoint; and one FP32 pretrain step of a narrow
                configuration (head dims 64 and 32, RoPE100), card against
                CPU within 1e-3;
+  15. stereoflow - (run after phase 13) stereo and flow finetuning at
+               CroCo-Stereo's and CroCo-Flow's published recipes on the
+               CroCo v2 ViT-L / Base decoder (RoPE100, random init from
+               seed 0): (a) crop 352x704, B = 6, LaplacianLossBounded2, lr
+               3e-5, 5 steps of stereoflow.engine.make_train_step on one
+               batch of a SceneFlow fixture tree at its raw 540x960, (b)
+               crop 320x384, B = 8, LaplacianLossBounded, lr 2e-5, 3 steps
+               on a FlyingChairs tree at 384x512: launches of step 1
+               against stereoflow_launches, finite losses, the last below
+               the first, the median step, pairs/s and peak memory; the
+               tiled test of one 540x960 pair at full width (9 tiles at
+               overlap 0.7 in chunks of 8): launches, seconds a pair;
+               (c) `python -m spann3r_torch.stereoflow_train stereo` with
+               tiled validation and `python -m spann3r_torch.stereoflow_test
+               --save metrics pred visu` on its output, at a narrow model;
+               (d) one FP32 stereo step of that narrow model, card against
+               CPU within 1e-3;
   9. parity  - the same weights at FP32, 224x224, 4 frames, streaming and
                offline: the card (kernels) against the CPU (plain
                versions), the same frame order, tolerance 1e-3; the
@@ -160,6 +177,11 @@ pretraining path's other shapes (PRETRAIN_SHAPES: the encoders on the 20
 visible tokens and on 196, the decoders' self and cross attention; K3 at
 the positions a random mask gathers), with planted faults (records under
 "pretrain_by_shape").
+Phase 3 also holds K3, K2 and their backwards at the stereo and flow
+finetuning path's shapes (STEREOFLOW_SHAPES: the encoder over both images
+and the decoder's self and cross attention at 968 tokens, B = 6 pairs, and
+at 480 tokens, B = 8; the tiled test's forwards at tile_batch 8), with
+the same planted faults (records under "stereoflow_by_shape").
 Phase 3 also holds K2's backward kernel and K3 at sign -1 (the backward)
 against their plain versions at the training shapes and the 512 encoder's,
 with planted faults (K2's: one in each of dq, dk and dv), K2's and K3's
@@ -644,6 +666,7 @@ def phase_kernels(records):
         backward_cases(case, planted, dtype, randn, records)
         head_dim_32_cases(case, planted, dtype, randn, records)
         pretrain_cases(case, planted, dtype, randn, records)
+        stereoflow_cases(case, planted, dtype, randn, records)
     records["rope2d"]["decoder"] = rope_decoder
     records["rope2d"]["offline"] = rope_offline
     records["sdpa"]["offline"] = sdpa_offline
@@ -1055,146 +1078,195 @@ def pretrain_cases(case, planted, dtype, randn, records):
     """K3 (with RoPE), K2 and their backwards at PRETRAIN_SHAPES against
     their plain versions, in the layouts the pretraining path gives them;
     the visible tokens' positions gathered from the patch grid as
-    `croco_forward` gathers them under a `random_mask`. Planted faults,
-    bf16: K3 with the first N positions of the grid (not the gathered ones)
-    on the visible tokens and with the last head of k unrotated, its
-    backward rotating forward (sign +1) and leaving the last head of dk
-    unrotated; K2 counting the padding keys of its last tile and without
-    its last key tile; its backward's three last-tile faults of
-    `backward_cases`. Timed in bf16, the path's type under --amp 1; records
-(bf16) under "pretrain_by_shape"."""
-    import torch.nn.functional as F
-
+    `croco_forward` gathers them under a `random_mask` (`path_cases` holds
+    each shape). Timed in bf16, the path's type under --amp 1; records
+    (bf16) under "pretrain_by_shape"."""
     from spann3r_torch.models.croco_pretrain import random_mask
     from spann3r_torch.models.vit import patch_positions
-    from spann3r_torch.ops import attention, rope
 
-    main = dtype == torch.bfloat16
-    esize = torch.finfo(dtype).bits // 8
     grid = patch_positions(14, 14, torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     for label, b, h, n, m, d, layout, with_rope in PRETRAIN_SHAPES:
-        shape = f"({b},{h},{n},{m},{d})"
-        scale = d ** -0.5
-        if layout == "self":
-            qkv = randn(b, n, 3, h, d, dtype=dtype).permute(2, 0, 3, 1, 4)
-            q, k, v = qkv[0], qkv[1], qkv[2]
-        else:
-            q = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
-            k, v = (randn(b, m, h, d, dtype=dtype).transpose(1, 2)
-                    for _ in range(2))
         full = grid[None].expand(b, -1, -1)
+        gathered = None
         if n < 196:
             mask = random_mask(gen, b, 196, 0.9, "cuda")
             order = torch.argsort(mask.to(torch.int32), dim=1, stable=True)
             qpos = torch.take_along_dim(full, order[:, :n, None], dim=1)
+            gathered = full[:, :n]
         else:
             qpos = full
         kpos = qpos if layout == "self" else full
-        pos_bytes = sum({t.untyped_storage().data_ptr():
-                         t.untyped_storage().nbytes()
-                         for t in (qpos, kpos)}.values())
-        if with_rope:
-            work = (3.0 * (q.numel() + k.numel()),
-                    2.0 * (q.numel() + k.numel()) * esize + pos_bytes)
-            rec = case("rope2d", f"pretrain {label} q+k {shape}", dtype,
-                       lambda: rope.rope_2d_qk_cuda(q, k, qpos, kpos),
-                       lambda: (rope.rope_2d_plain(q, qpos, 100.0),
-                                rope.rope_2d_plain(k, kpos, 100.0)),
-                       False, work, time_it=main)
-            if main:
-                records["rope2d"].setdefault("pretrain_by_shape",
-                                             {})[label] = rec
-                want = rope.rope_2d_plain(k, kpos, 100.0)
-                wrong = want.clone()
-                wrong[:, -1] = k[:, -1]
-                planted(f"rope2d pretrain {label}: the last head of k "
-                        f"unrotated", wrong, want, TOL_ROPE_BF16)
-                if n < 196:
-                    want = rope.rope_2d_plain(q, qpos, 100.0)
-                    planted(f"rope2d pretrain {label}: the first {n} "
-                            f"positions, not the gathered ones",
-                            rope.rope_2d_plain(q, full[:, :n], 100.0), want,
-                            TOL_ROPE_BF16)
-            q, k = rope.rope_2d_qk_cuda(q, k, qpos, kpos)
-        rec = case("sdpa", f"pretrain {label} {shape}", dtype,
-                   lambda: attention.sdpa_cuda(q, k, v, scale),
-                   lambda: attention.sdpa_plain(q, k, v, scale), False,
-                   (4.0 * b * h * n * m * d, esize * 2.0 * b * h * (n + m) * d),
-                   time_it=main, run_library=lambda: F.scaled_dot_product_attention(
-                       q, k, v, scale=scale))
+        path_cases(case, planted, dtype, randn, records, "pretrain",
+                   (label, b, h, n, m, d, layout, with_rope), qpos, kpos,
+                   ungathered=gathered)
+
+
+def path_cases(case, planted, dtype, randn, records, path, shape_rec, qpos,
+               kpos, backward=True, ungathered=None):
+    """One attention shape of a training path: K3 on q and k (with RoPE),
+    K2 on its outputs, K2's backward and K3's backward against their plain
+    versions, in the path's layout ("self": q, k, v strided slices of one
+    qkv projection; "cross": (B, N, H, Dh) views of separate projections)
+    at the positions given. Planted faults, bf16: K3 with the last head of
+    k unrotated (and, where `ungathered` is given, at those positions, not
+    the gathered ones), its backward rotating forward and leaving the last
+    head of dk unrotated; K2 counting the padding keys of its last tile and
+    without its last key tile; its backward's three last-tile faults of
+    `backward_cases`. `backward` False holds the forwards only (an
+    inference path). Records (bf16) under "<path>_by_shape"."""
+    import torch.nn.functional as F
+
+    from spann3r_torch.ops import attention, rope
+
+    label, b, h, n, m, d, layout, with_rope = shape_rec
+    main = dtype == torch.bfloat16
+    esize = torch.finfo(dtype).bits // 8
+    key = f"{path}_by_shape"
+    shape = f"({b},{h},{n},{m},{d})"
+    scale = d ** -0.5
+    if layout == "self":
+        qkv = randn(b, n, 3, h, d, dtype=dtype).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+    else:
+        q = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+        k, v = (randn(b, m, h, d, dtype=dtype).transpose(1, 2)
+                for _ in range(2))
+    pos_bytes = sum({t.untyped_storage().data_ptr():
+                     t.untyped_storage().nbytes()
+                     for t in (qpos, kpos)}.values())
+    if with_rope:
+        work = (3.0 * (q.numel() + k.numel()),
+                2.0 * (q.numel() + k.numel()) * esize + pos_bytes)
+        rec = case("rope2d", f"{path} {label} q+k {shape}", dtype,
+                   lambda: rope.rope_2d_qk_cuda(q, k, qpos, kpos),
+                   lambda: (rope.rope_2d_plain(q, qpos, 100.0),
+                            rope.rope_2d_plain(k, kpos, 100.0)),
+                   False, work, time_it=main)
         if main:
-            records["sdpa"].setdefault("pretrain_by_shape", {})[label] = rec
-            want = attention.sdpa_plain(q, k, v, scale)
-            planted(f"sdpa pretrain {label} {shape}: the padding keys of the "
-                    f"last tile counted", sdpa_unmasked_padding(q, k, v, scale),
-                    want, TOL_BF16)
-            p = torch.softmax(torch.matmul(q.float(), k.float().transpose(
-                -1, -2)) * scale, dim=-1).to(dtype).float()
-            p[..., 64 * ((m - 1) // 64):] = 0.0
-            planted(f"sdpa pretrain {label} {shape}: without its last key "
-                    f"tile", torch.matmul(p, v.float()).to(dtype), want,
-                    TOL_BF16)
-            del want, p
-        dout = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
-        _, lse = attention.sdpa_cuda(q, k, v, scale, with_lse=True)
-        ql, kl, vl = (t.detach().clone().requires_grad_(True)
-                      for t in (q, k, v))
-        lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl,
-                                                         scale=scale)
-        flip, flipped = bwd_flip_allowance(q, k, v, dout, lse, scale)
-        rec = case(
-            "sdpa_bwd", f"pretrain {label} {shape}", dtype,
-            lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, scale),
-            lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, scale),
-            False, (10.0 * b * h * n * m * d,
-                    esize * (3.0 * n + 4.0 * m) * b * h * d + 4.0 * b * h * n),
-            extra=flip, note=f" + flips of {flipped} P/dS entries",
-            time_it=main,
-            run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl),
-                                                    dout),
-            library_minus=lib_fwd)
-        if main:
-            records["sdpa_bwd"].setdefault("pretrain_by_shape", {})[label] = rec
-            allowance_census(f"pretrain {label} {shape}", q, k, v, dout, lse,
-                             scale, flip, records)
-            want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
-            wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse,
-                                                        scale)
-            wrong_dk = want[1].clone()
-            wrong_dk[..., -64:, :] = 0.0
-            for what, wrong, i in (
-                    ("dq without its last key tile", wrong_dq, 0),
-                    ("dk without its last key tile", wrong_dk, 1),
-                    ("dv without its last query tile", wrong_dv, 2)):
-                planted(f"sdpa_bwd pretrain {label} {shape}: {what}", wrong,
-                        want[i], TOL_BF16, flip[i])
-            del want, wrong_dq, wrong_dk, wrong_dv
-        del flip
-        if not with_rope:
-            continue
-        dq = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
-        dk = randn(b, m, h, d, dtype=dtype).transpose(1, 2)
-        work = (3.0 * (dq.numel() + dk.numel()),
-                2.0 * (dq.numel() + dk.numel()) * esize + pos_bytes)
-        rec = case(
-            "rope2d_bwd", f"pretrain {label} dq+dk {shape}", dtype,
-            lambda: tuple(rope._launch([(dq, qpos), (dk, kpos)], 100.0, -1.0,
-                                       counter="rope2d_bwd")),
-            lambda: (rope.rope_2d_plain(dq, qpos, 100.0, -1.0),
-                     rope.rope_2d_plain(dk, kpos, 100.0, -1.0)), False, work,
-            time_it=main)
-        if main:
-            records["rope2d_bwd"].setdefault("pretrain_by_shape",
-                                             {})[label] = rec
-            want = rope.rope_2d_plain(dk, kpos, 100.0, -1.0)
+            records["rope2d"].setdefault(key, {})[label] = rec
+            want = rope.rope_2d_plain(k, kpos, 100.0)
             wrong = want.clone()
-            wrong[:, -1] = dk[:, -1]
-            planted(f"rope2d_bwd pretrain {label}: the last head of dk "
-                    f"unrotated", wrong, want, TOL_ROPE_BF16)
-            planted(f"rope2d_bwd pretrain {label}: dk rotated forward",
-                    rope.rope_2d_plain(dk, kpos, 100.0, 1.0), want,
-                    TOL_ROPE_BF16)
+            wrong[:, -1] = k[:, -1]
+            planted(f"rope2d {path} {label}: the last head of k unrotated",
+                    wrong, want, TOL_ROPE_BF16)
+            if ungathered is not None:
+                want = rope.rope_2d_plain(q, qpos, 100.0)
+                planted(f"rope2d {path} {label}: the first {n} positions, "
+                        f"not the gathered ones",
+                        rope.rope_2d_plain(q, ungathered, 100.0), want,
+                        TOL_ROPE_BF16)
+        q, k = rope.rope_2d_qk_cuda(q, k, qpos, kpos)
+    rec = case("sdpa", f"{path} {label} {shape}", dtype,
+               lambda: attention.sdpa_cuda(q, k, v, scale),
+               lambda: attention.sdpa_plain(q, k, v, scale), False,
+               (4.0 * b * h * n * m * d, esize * 2.0 * b * h * (n + m) * d),
+               time_it=main, run_library=lambda: F.scaled_dot_product_attention(
+                   q, k, v, scale=scale))
+    if main:
+        records["sdpa"].setdefault(key, {})[label] = rec
+        want = attention.sdpa_plain(q, k, v, scale)
+        planted(f"sdpa {path} {label} {shape}: the padding keys of the last "
+                f"tile counted", sdpa_unmasked_padding(q, k, v, scale), want,
+                TOL_BF16)
+        p = torch.softmax(torch.matmul(q.float(), k.float().transpose(
+            -1, -2)) * scale, dim=-1).to(dtype).float()
+        p[..., 64 * ((m - 1) // 64):] = 0.0
+        planted(f"sdpa {path} {label} {shape}: without its last key tile",
+                torch.matmul(p, v.float()).to(dtype), want, TOL_BF16)
+        del want, p
+    if not backward:
+        return
+    dout = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+    _, lse = attention.sdpa_cuda(q, k, v, scale, with_lse=True)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    flip, flipped = bwd_flip_allowance(q, k, v, dout, lse, scale)
+    rec = case(
+        "sdpa_bwd", f"{path} {label} {shape}", dtype,
+        lambda: attention.sdpa_backward_cuda(q, k, v, dout, lse, scale),
+        lambda: attention.sdpa_backward_plain(q, k, v, dout, lse, scale),
+        False, (10.0 * b * h * n * m * d,
+                esize * (3.0 * n + 4.0 * m) * b * h * d + 4.0 * b * h * n),
+        extra=flip, note=f" + flips of {flipped} P/dS entries", time_it=main,
+        run_library=lambda: torch.autograd.grad(lib_fwd(), (ql, kl, vl), dout),
+        library_minus=lib_fwd)
+    if main:
+        records["sdpa_bwd"].setdefault(key, {})[label] = rec
+        allowance_census(f"{path} {label} {shape}", q, k, v, dout, lse, scale,
+                         flip, records)
+        want = attention.sdpa_backward_plain(q, k, v, dout, lse, scale)
+        wrong_dq, wrong_dv = sdpa_bwd_without_tails(q, k, v, dout, lse, scale)
+        wrong_dk = want[1].clone()
+        wrong_dk[..., -64:, :] = 0.0
+        for what, wrong, i in (
+                ("dq without its last key tile", wrong_dq, 0),
+                ("dk without its last key tile", wrong_dk, 1),
+                ("dv without its last query tile", wrong_dv, 2)):
+            planted(f"sdpa_bwd {path} {label} {shape}: {what}", wrong,
+                    want[i], TOL_BF16, flip[i])
+        del want, wrong_dq, wrong_dk, wrong_dv
+    del flip
+    if not with_rope:
+        return
+    dq = randn(b, n, h, d, dtype=dtype).transpose(1, 2)
+    dk = randn(b, m, h, d, dtype=dtype).transpose(1, 2)
+    work = (3.0 * (dq.numel() + dk.numel()),
+            2.0 * (dq.numel() + dk.numel()) * esize + pos_bytes)
+    rec = case(
+        "rope2d_bwd", f"{path} {label} dq+dk {shape}", dtype,
+        lambda: tuple(rope._launch([(dq, qpos), (dk, kpos)], 100.0, -1.0,
+                                   counter="rope2d_bwd")),
+        lambda: (rope.rope_2d_plain(dq, qpos, 100.0, -1.0),
+                 rope.rope_2d_plain(dk, kpos, 100.0, -1.0)), False, work,
+        time_it=main)
+    if main:
+        records["rope2d_bwd"].setdefault(key, {})[label] = rec
+        want = rope.rope_2d_plain(dk, kpos, 100.0, -1.0)
+        wrong = want.clone()
+        wrong[:, -1] = dk[:, -1]
+        planted(f"rope2d_bwd {path} {label}: the last head of dk unrotated",
+                wrong, want, TOL_ROPE_BF16)
+        planted(f"rope2d_bwd {path} {label}: dk rotated forward",
+                rope.rope_2d_plain(dk, kpos, 100.0, 1.0), want,
+                TOL_ROPE_BF16)
+
+
+# the stereo and flow finetuning path's attention shapes (phase 15's two
+# published configurations, the CroCo v2 ViT-L / Base decoder with
+# RoPE100): (label, B, H, N, M, head dim, layout, RoPE). CroCo-Stereo trains
+# at a 352x704 crop, a 22x44 patch grid (968 = 15 * 64 + 8 tokens: a ragged
+# 8-row tile), B = 6 pairs: the encoder on both images (2B = 12, 16 heads),
+# the decoder (12 heads) self and cross on image 1's; CroCo-Flow at
+# 320x384, a 20x24 grid (480 tokens), B = 8; the tiled test at the stereo
+# crop in chunks of tile_batch = 8 (forward only). Positions: the grid's,
+# stride 0 over the batch
+STEREOFLOW_GRID = {968: (22, 44), 480: (20, 24)}
+STEREOFLOW_SHAPES = (
+    ("stereo encoder", 12, 16, 968, 968, 64, "self", True),
+    ("stereo decoder self", 6, 12, 968, 968, 64, "self", True),
+    ("stereo decoder cross", 6, 12, 968, 968, 64, "cross", True),
+    ("flow encoder", 16, 16, 480, 480, 64, "self", True),
+    ("flow decoder self", 8, 12, 480, 480, 64, "self", True),
+    ("flow decoder cross", 8, 12, 480, 480, 64, "cross", True),
+    ("tiled encoder", 16, 16, 968, 968, 64, "self", True),
+    ("tiled decoder self", 8, 12, 968, 968, 64, "self", True),
+    ("tiled decoder cross", 8, 12, 968, 968, 64, "cross", True))
+
+
+def stereoflow_cases(case, planted, dtype, randn, records):
+    """K3, K2 and (but for the tiled test's) their backwards at
+    STEREOFLOW_SHAPES (`path_cases`); records (bf16) under
+    "stereoflow_by_shape"."""
+    from spann3r_torch.models.vit import patch_positions
+
+    for shape_rec in STEREOFLOW_SHAPES:
+        label, b, _, n = shape_rec[:4]
+        pos = patch_positions(*STEREOFLOW_GRID[n], torch.device("cuda"))[
+            None].expand(b, -1, -1)
+        path_cases(case, planted, dtype, randn, records, "stereoflow",
+                   shape_rec, pos, pos,
+                   backward=not label.startswith("tiled"))
 
 
 # ---------------------------------------------------------------------------
@@ -3457,6 +3529,308 @@ def pretrain_parity():
         raise AssertionError("pretrain parity: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: stereo and flow finetuning
+# ---------------------------------------------------------------------------
+
+# CroCo-Stereo's and CroCo-Flow's published recipes (croco/stereoflow/
+# train.py's defaults: crop, batch, criterion, lr; bf16) on the CroCo v2
+# ViT-L / Base decoder with RoPE100 they finetune (PRETRAIN_MODELS' v2), at
+# random init from seed 0 (no published weights here): (dataset kind,
+# training split, crop, B, criterion, lr, steps) on a fixture tree at the
+# dataset's raw size, every step on one fixed batch of augmented crops
+STEREOFLOW_MODEL = PRETRAIN_MODELS["v2 ViT-L/Base"]
+STEREOFLOW_CELLS = {
+    "stereo": ("SceneFlow", "SceneFlow(split='train_finalpass')", (352, 704),
+               6, "LaplacianLossBounded2()", 3e-5, 5),
+    "flow": ("FlyingChairs", "FlyingChairs(split='train')", (320, 384), 8,
+             "LaplacianLossBounded()", 2e-5, 3)}
+# the tiled test: a SceneFlow test pair at its raw 540x960, 9 tiles of the
+# stereo crop at overlap 0.7 in chunks of tile_batch = 8 (2 chunks)
+STEREOFLOW_TILE_BATCH, STEREOFLOW_OVERLAP = 8, 0.7
+# the CLIs' model, narrow so that their checkpoints stay small (head dim
+# 64, RoPE100: K2 and K3 as at full width), and the card-vs-CPU step's
+STEREOFLOW_CLI_MODEL = ("CroCoNet(enc_embed_dim=256, enc_depth=4, "
+                        "enc_num_heads=4, dec_embed_dim=256, dec_depth=2, "
+                        "dec_num_heads=4, pos_embed='RoPE100')")
+STEREOFLOW_PARITY_HW = (64, 96)
+
+
+def stereoflow_launches(cfg, task, chunks=1):
+    """Kernel launches of one stereo or flow train step ("stereo", "flow"):
+    the encoder once over both images (one attention a block), the
+    decoder's self and cross attention a block, each one K2 forward and
+    one backward, with RoPE one K3 on q and k each way; no K1. A tiled
+    prediction ("tiled") runs the forward once a chunk of tiles."""
+    attn = cfg.enc.depth + 2 * cfg.dec.depth
+    rope = attn if cfg.enc.rope_base > 0 else 0
+    if task == "tiled":
+        return {"rope2d": chunks * rope, "sdpa": chunks * attn,
+                "memory_read": 0, "sdpa_bwd": 0, "rope2d_bwd": 0}
+    return {"rope2d": rope, "sdpa": attn, "memory_read": 0, "sdpa_bwd": attn,
+            "rope2d_bwd": rope}
+
+
+def stereoflow_batch(task, b, seed=SEED):
+    """One batch of the training split through the dataset's augmentor
+    (the crop), as numpy (img1, img2, gt)."""
+    from spann3r_torch.stereoflow import datasets as sfd
+    from spann3r_torch.stereoflow.engine import iterate_batches
+
+    _, dataset, crop = STEREOFLOW_CELLS[task][:3]
+    build = (sfd.get_train_dataset_stereo if task == "stereo"
+             else sfd.get_train_dataset_flow)
+    ds = build(dataset, crop_size=crop, seed=seed)
+    return next(iterate_batches(ds, b, np.random.default_rng(seed)))[:3]
+
+
+def phase_stereoflow(records, card):
+    """(a), (b) each cell of STEREOFLOW_CELLS at full width: launches of
+    step 1 against stereoflow_launches, finite losses, the last below the
+    first, the median step (steps 2 on), pairs/s, peak memory; then the
+    tiled prediction of one 540x960 SceneFlow pair at full width (launches
+    against stereoflow_launches(.., "tiled", 2), seconds); (c) the CLIs
+    (stereoflow_cli); (d) one FP32 step card against CPU
+    (stereoflow_parity)."""
+    import tempfile
+
+    from spann3r_torch import config as C
+    from spann3r_torch.models.croco_downstream import croco_kwargs_from_cfg
+    from spann3r_torch.models.croco_pretrain import parse_croco_model
+    from spann3r_torch.ops import _kernels
+    from spann3r_torch.stereoflow import criterion as sfc
+    from spann3r_torch.stereoflow import datasets as sfd
+    from spann3r_torch.stereoflow import engine as sfe
+    from spann3r_torch.tools import stereoflow_fixtures as fx
+
+    t_phase = time.perf_counter()
+    kwargs = croco_kwargs_from_cfg(parse_croco_model(STEREOFLOW_MODEL)[0])
+    with tempfile.TemporaryDirectory(prefix="spann3r_stereoflow_") as root:
+        t0 = time.perf_counter()
+        fx.write_tree("SceneFlow", root, seed=SEED, pairs=6)
+        fx.write_tree("FlyingChairs", root, seed=SEED + 1, pairs=10)
+        sfd.DATA_ROOT = root
+        log(f"[stereoflow] fixture trees: SceneFlow 6 + 1 pairs at "
+            f"{fx.RAW_SIZES['SceneFlow']}, FlyingChairs 8 + 2 at "
+            f"{fx.RAW_SIZES['FlyingChairs']} in {time.perf_counter() - t0:.1f}"
+            f" s")
+        for task, (kind, _, crop, b, spec, lr, steps) in \
+                STEREOFLOW_CELLS.items():
+            cfg = sfe.cfg_from_croco_args(kwargs, crop)
+            crit = sfc.build_criterion(spec)
+            nc = (1 if task == "stereo" else 2) + int(crit.with_conf)
+            torch.cuda.empty_cache()
+            model, _ = sfe.init_stereoflow(
+                torch.Generator().manual_seed(SEED), cfg, nc, "cuda")
+            n_params = sum(p.numel() for p in model.parameters())
+            img1, img2, gt = (torch.from_numpy(a).cuda()
+                              for a in stereoflow_batch(task, b))
+            opt = sfe.make_optimizer(0.05)
+            state = opt.init(dict(model.named_parameters()))
+            step = sfe.make_train_step(cfg, crit, task, opt, C.BF16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, losses = [], []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                if i == 0:
+                    _kernels.reset_launches()
+                t0 = time.perf_counter()
+                state, loss, bm = step(model, state, img1, img2, gt, lr)
+                losses.append(float(loss))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    counts = _kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = stereoflow_launches(cfg, task)
+            med = statistics.median(walls[1:])
+            log(f"[stereoflow] {task}: {STEREOFLOW_MODEL}, {n_params} params,"
+                f" crop {crop} ({cfg.img_size[0] // 16}x{cfg.img_size[1] // 16}"
+                f" tokens), B={b}, {spec}, lr {lr}, BF16: launches of step 1 "
+                f"{counts}, expected {want}")
+            last = {k: round(float(v), 3) for k, v in bm.items()}
+            log(f"[stereoflow] {task}: loss {[round(x, 4) for x in losses]} "
+                f"on one batch; metrics of the last step {last}; step ms "
+                f"{[round(x, 1) for x in walls]}, median of steps 2-{steps} "
+                f"{med:.1f} ms ({b / med * 1e3:.2f} pairs/s); peak memory "
+                f"{peak / 2**30:.2f} GiB on {card}")
+            if counts != want:
+                raise AssertionError(f"stereoflow {task}: launches {counts}, "
+                                     f"expected {want}")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"stereoflow {task}: losses {losses}")
+            for k in counts:
+                records[k].setdefault("stereoflow_launches", {})[task] = \
+                    counts[k]
+            records["sdpa"].setdefault("stereoflow", {})[task] = {
+                "step_ms": med, "pairs_per_s": b / med * 1e3,
+                "peak_gib": peak / 2**30, "params": n_params}
+            del state, step, opt, img1, img2, gt
+            if task == "stereo":
+                stereoflow_tiled(records, model, cfg, crit, card)
+            del model
+        torch.cuda.empty_cache()
+        stereoflow_cli(root)
+    stereoflow_parity()
+    log(f"[stereoflow] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def stereoflow_tiled(records, model, cfg, crit, card):
+    """One SceneFlow test pair at its raw 540x960 through tiled_pred with
+    the test CLI's model function (chunks of tiles on the card), BF16:
+    the launches of K2 and K3 against stereoflow_launches, the prediction
+    finite and of the pair's size, the seconds a pair (median of 3 after a
+    first)."""
+    from spann3r_torch import config as C
+    from spann3r_torch.ops import _kernels
+    from spann3r_torch.stereoflow import datasets as sfd
+    from spann3r_torch.stereoflow.engine import make_tile_fn
+    from spann3r_torch.stereoflow.tiling import tile_slices, tiled_pred
+
+    img1, img2, gt, _ = sfd.get_test_datasets_stereo(
+        "SceneFlow(split='test_finalpass')")[0][0]
+    h, w = img1.shape[:2]
+    crop = cfg.img_size
+    n_tiles = (len(tile_slices(h, crop[0], STEREOFLOW_OVERLAP))
+               * len(tile_slices(w, crop[1], STEREOFLOW_OVERLAP)))
+    chunks = -(-n_tiles // STEREOFLOW_TILE_BATCH)
+    fn = make_tile_fn(model, cfg, C.BF16)
+
+    def run():
+        return tiled_pred(fn, None, img1[None], img2[None], gt[None],
+                          crop=crop, overlap=STEREOFLOW_OVERLAP,
+                          conf_mode="conf_expsigmoid_15_3",
+                          with_conf=crit.with_conf,
+                          tile_batch=STEREOFLOW_TILE_BATCH)[0]
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    pred = run()
+    counts = _kernels.launch_counts()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        secs.append(time.perf_counter() - t0)
+    want = stereoflow_launches(cfg, "tiled", chunks)
+    log(f"[stereoflow] tiled test: a {h}x{w} pair, {n_tiles} tiles of {crop} "
+        f"at overlap {STEREOFLOW_OVERLAP} in {chunks} chunks of "
+        f"{STEREOFLOW_TILE_BATCH}: launches {counts}, expected {want}; "
+        f"{statistics.median(secs):.3f} s a pair (median of "
+        f"{[round(x, 3) for x in secs]}) on {card}")
+    if counts != want:
+        raise AssertionError(f"stereoflow tiled: launches {counts}, expected "
+                             f"{want}")
+    if pred.shape != (1, h, w, 1) or not np.isfinite(pred).all():
+        raise AssertionError(f"stereoflow tiled: prediction {pred.shape}")
+    for k in counts:
+        records[k].setdefault("stereoflow_launches", {})["tiled"] = counts[k]
+    records["sdpa"].setdefault("stereoflow", {})["tiled_s_per_pair"] = \
+        statistics.median(secs)
+
+
+def stereoflow_cli(root):
+    """`python -m spann3r_torch.stereoflow_train stereo` on the SceneFlow
+    fixture (STEREOFLOW_CLI_MODEL at the published crop, B = 2, one epoch
+    of 4 pairs, tiled validation on the test pair), then `python -m
+    spann3r_torch.stereoflow_test --save metrics pred visu` on its output:
+    the checkpoints, sidecar and log, finite metrics, the dumps."""
+    import pickle
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, SPANN3R_STEREOFLOW_DATA=root)
+    out = os.path.join(root, "run")
+    val = "SceneFlow(split='test_finalpass')"
+    for what, cmd in (
+            ("stereoflow_train", [
+                "spann3r_torch.stereoflow_train", "stereo", "--output_dir",
+                out, "--model", STEREOFLOW_CLI_MODEL, "--dataset",
+                STEREOFLOW_CELLS["stereo"][1], "--val_dataset", val,
+                "--batch_size", "2", "--img_per_epoch", "4", "--epochs",
+                "1"]),
+            ("stereoflow_test", [
+                "spann3r_torch.stereoflow_test", "--model", out, "--dataset",
+                val, "--save", "metrics", "pred", "visu"])):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", *cmd], cwd=here,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            lines = proc.communicate(timeout=DIST_WORKER_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.communicate()
+        lines = lines.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} failed:\n" + "\n".join(lines[-60:]))
+        log(f"[stereoflow] python -m spann3r_torch.{what}: "
+            f"{time.perf_counter() - t0:.1f} s; {lines[-1][:300]}")
+    files = [f for _, _, fs in os.walk(out) for f in fs]
+    metrics = [os.path.join(r, f) for r, _, fs in os.walk(out) for f in fs
+               if f == "metrics.pkl"]
+    need = ("checkpoint-last.pth", "checkpoint-best.pth",
+            "stereoflow_args.json", "log.txt")
+    if not all(f in files for f in need) or len(metrics) != 1 or not any(
+            f.endswith("_pred.npy") for f in files) or not any(
+            f.endswith("_pred.png") for f in files):
+        raise AssertionError(f"stereoflow CLIs wrote {sorted(files)}")
+    with open(metrics[0], "rb") as f:
+        m = pickle.load(f)
+    log(f"[stereoflow] stereoflow_test metrics {m}")
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"stereoflow_test metrics {m}")
+
+
+def stereoflow_parity():
+    """One FP32 stereo step's loss and gradients on the card (kernels) and
+    on the CPU (plain versions), the same weights and batch: loss within
+    E2E_TOL relative, every gradient within E2E_TOL of the largest |grad|;
+    launches on the card as stereoflow_launches."""
+    from spann3r_torch import config as C
+    from spann3r_torch.models.croco_downstream import croco_kwargs_from_cfg
+    from spann3r_torch.models.croco_pretrain import parse_croco_model
+    from spann3r_torch.ops import _kernels
+    from spann3r_torch.stereoflow import criterion as sfc
+    from spann3r_torch.stereoflow import engine as sfe
+
+    cfg = sfe.cfg_from_croco_args(croco_kwargs_from_cfg(parse_croco_model(
+        STEREOFLOW_CLI_MODEL)[0]), STEREOFLOW_PARITY_HW)
+    crit = sfc.build_criterion(STEREOFLOW_CELLS["stereo"][4])
+    g = torch.Generator().manual_seed(SEED + 50)
+    img1, img2 = (torch.randn(2, *STEREOFLOW_PARITY_HW, 3, generator=g)
+                  for _ in range(2))
+    gt = torch.rand(2, *STEREOFLOW_PARITY_HW, 1, generator=g) * 20
+    gt[0, :8] = float("inf")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, _ = sfe.init_stereoflow(torch.Generator().manual_seed(SEED),
+                                       cfg, 2, dev)
+        if dev == "cuda":
+            _kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads, _ = sfe.stereoflow_loss_and_grads(
+            model, cfg, crit, img1.to(dev), img2.to(dev), gt.to(dev), C.FP32)
+        out[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                    time.perf_counter() - t0)
+        if dev == "cuda":
+            counts = _kernels.launch_counts()
+    (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    worst = max(gc, key=lambda k: float((gg[k] - gc[k]).abs().max()))
+    err = float((gg[worst] - gc[worst]).abs().max())
+    want = stereoflow_launches(cfg, "stereo")
+    log(f"[parity] one FP32 stereo step, {STEREOFLOW_CLI_MODEL} at "
+        f"{STEREOFLOW_PARITY_HW}, B=2: loss card {lg:.6f} CPU {lc:.6f}; grads "
+        f"max abs err {err:.3e} ({worst}) = {err / gmax:.3e} of max |grad| "
+        f"{gmax:.3e} (bound {E2E_TOL}); launches on the card {counts}, "
+        f"expected {want}; {sg:.2f} s on the card, {sc:.2f} s on the CPU")
+    if counts != want:
+        raise AssertionError("stereoflow parity: launches differ from the code")
+    if abs(lg - lc) > E2E_TOL * abs(lc) or err > E2E_TOL * gmax:
+        raise AssertionError("stereoflow parity: card and CPU disagree")
+
+
 def train_batches(n, b=TRAIN_B, dataset=TRAIN_DATASET):
     """n batches of b clips of TRAIN_T frames at 224 through the trainer's
     dataset, sampler and loader (phase 10's: SynthRoom by default)."""
@@ -3510,6 +3884,7 @@ def main():
     phase_parity()
     phase_parity_train()
     phase_pretrain(records, card)
+    phase_stereoflow(records, card)
     print(json.dumps({"kernels": [records[k] for k in (
         "rope2d", "sdpa", "memory_read", "sdpa_bwd", "rope2d_bwd")]}))
     print(card, flush=True)

@@ -15,7 +15,9 @@ names), so both packages can run on the same weights:
   - block stacks (leading depth axis) -> one entry per block index
 
 `state_dict_from_croco_params` does the same for the JAX package's CroCo
-pretraining params (`init_croco`'s pytree) and the port's `CroCoNet`.
+pretraining params (`init_croco`'s pytree) and the port's `CroCoNet`, and
+`state_dict_from_stereoflow_params` for its stereo and flow models (the
+CroCo backbone and the pixelwise DPT head) and the port's `StereoFlowNet`.
 
 `load_spann3r_checkpoint` loads a published Spann3R `.pth` into the port:
 its module paths are the published keys already. `load_dust3r_checkpoint`
@@ -159,14 +161,31 @@ def state_dict_from_croco_params(params_np: Mapping[str, Any]
     numpy arrays) -> the state dict of the port's `CroCoNet`, loadable with
     `load_state_dict(strict=True)`."""
     sd: Dict[str, torch.Tensor] = {}
-    _conv(sd, "patch_embed.proj", params_np["patch_embed"]["proj"])
-    _block_stack(sd, "enc_blocks", params_np["enc_blocks"])
-    _ln(sd, "enc_norm", params_np["enc_norm"])
-    _lin(sd, "decoder_embed", params_np["decoder_embed"])
-    _block_stack(sd, "dec_blocks", params_np["dec_blocks"], decoder=True)
-    _ln(sd, "dec_norm", params_np["dec_norm"])
+    _croco_backbone(sd, "", params_np)
     sd["mask_token"] = _t(params_np["mask_token"])
     _lin(sd, "prediction_head", params_np["prediction_head"])
+    return sd
+
+
+def _croco_backbone(sd, prefix, p):
+    _conv(sd, f"{prefix}patch_embed.proj", p["patch_embed"]["proj"])
+    _block_stack(sd, f"{prefix}enc_blocks", p["enc_blocks"])
+    _ln(sd, f"{prefix}enc_norm", p["enc_norm"])
+    _lin(sd, f"{prefix}decoder_embed", p["decoder_embed"])
+    _block_stack(sd, f"{prefix}dec_blocks", p["dec_blocks"], decoder=True)
+    _ln(sd, f"{prefix}dec_norm", p["dec_norm"])
+
+
+def state_dict_from_stereoflow_params(params_np: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX stereoflow params (`stereoflow.engine.init_stereoflow`'s
+    {"croco", "head"} pytree, nested dicts of numpy arrays) -> the state
+    dict of the port's `StereoFlowNet` (`croco.*` without the mask token
+    and prediction head, `head.dpt.*` in the reference's names), loadable
+    with `load_state_dict(strict=True)`."""
+    sd: Dict[str, torch.Tensor] = {}
+    _croco_backbone(sd, "croco.", params_np["croco"])
+    _dpt_head(sd, "head.dpt", params_np["head"])
     return sd
 
 
@@ -212,14 +231,19 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def _model_state(path: str) -> Dict[str, torch.Tensor]:
-    """The state dict of a checkpoint (itself, or under 'model'), without a
-    DDP `module.` prefix and without the alias and vestigial keys."""
-    ckpt = read_checkpoint(path)
+def checkpoint_state(ckpt: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of a loaded checkpoint (itself, or under 'model'),
+    without a DDP `module.` prefix."""
     state = ckpt.get("model", ckpt)
-    state = {(k[len("module."):] if k.startswith("module.") else k): v
-             for k, v in state.items()}
-    return {k: v for k, v in state.items() if not is_alias_or_vestigial_key(k)}
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state.items()}
+
+
+def _model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a checkpoint file without the alias and vestigial
+    keys."""
+    return {k: v for k, v in checkpoint_state(read_checkpoint(path)).items()
+            if not is_alias_or_vestigial_key(k)}
 
 
 def load_spann3r_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:

@@ -736,3 +736,165 @@ def test_allowance_census_rejects_a_kernel_past_the_library():
     # past the allowance too
     flat[0] += 1.0
     assert chip_smoke.past_plain_bound((kernel,), plain, allowance)[1] == 1
+
+
+# ---------------------------------------------------------------------------
+# phase 15 (stereo and flow finetuning) and its phase 3 shapes
+# ---------------------------------------------------------------------------
+
+def _narrow_stereoflow_cfg(hw):
+    from spann3r_torch.models.croco_downstream import croco_kwargs_from_cfg
+    from spann3r_torch.models.croco_pretrain import parse_croco_model
+    from spann3r_torch.stereoflow import engine as sfe
+
+    cfg, _ = parse_croco_model(
+        "CroCoNet(enc_embed_dim=64, enc_depth=3, enc_num_heads=1, "
+        "dec_embed_dim=64, dec_depth=2, dec_num_heads=1, "
+        "pos_embed='RoPE100')")
+    return sfe.cfg_from_croco_args(croco_kwargs_from_cfg(cfg), hw)
+
+
+@pytest.mark.parametrize("task", ["stereo", "flow"])
+def test_stereoflow_launch_counts(autograd_kernels, task):
+    """chip_smoke's stereoflow_launches is what one stereo or flow train
+    step launches: K2 both ways in each encoder block (once, over both
+    images) and in each decoder block's self and cross attention, K3 both
+    ways with RoPE100, no K1."""
+    from spann3r_torch import config as C
+    from spann3r_torch.stereoflow import criterion as sfc
+    from spann3r_torch.stereoflow import engine as sfe
+
+    torch.set_num_threads(1)
+    cfg = _narrow_stereoflow_cfg((32, 48))
+    crit = sfc.build_criterion(chip_smoke.STEREOFLOW_CELLS[task][4])
+    nc = (1 if task == "stereo" else 2) + 1
+    model, _ = sfe.init_stereoflow(torch.Generator().manual_seed(0), cfg, nc,
+                                   "cpu")
+    g = torch.Generator().manual_seed(1)
+    img1, img2 = (torch.randn(2, 32, 48, 3, generator=g) for _ in range(2))
+    gt = torch.rand(2, 32, 48, nc - 1, generator=g) * 4
+    opt = sfe.make_optimizer(0.05)
+    step = sfe.make_train_step(cfg, crit, task, opt, C.FP32)
+    _, loss, _ = step(model, opt.init(dict(model.named_parameters())), img1,
+                      img2, gt, 1e-4)
+    assert torch.isfinite(loss)
+    want = chip_smoke.stereoflow_launches(cfg, task)
+    assert autograd_kernels.launch_counts() == want
+    assert want["sdpa"] == want["sdpa_bwd"] == want["rope2d"] == 3 + 2 * 2
+
+
+def test_stereoflow_tiled_launch_counts(autograd_kernels):
+    """A tiled prediction launches the forward's K2 and K3 once a chunk of
+    tiles (the tail chunk padded), nothing backward."""
+    from spann3r_torch import config as C
+    from spann3r_torch.stereoflow import engine as sfe
+    from spann3r_torch.stereoflow.tiling import tile_slices, tiled_pred
+
+    torch.set_num_threads(1)
+    cfg = _narrow_stereoflow_cfg((32, 48))
+    model, _ = sfe.init_stereoflow(torch.Generator().manual_seed(0), cfg, 2,
+                                   "cpu")
+    rng = np.random.default_rng(2)
+    img1, img2 = (rng.standard_normal((1, 48, 72, 3)).astype(np.float32)
+                  for _ in range(2))
+    n_tiles = len(tile_slices(48, 32, 0.7)) * len(tile_slices(72, 48, 0.7))
+    pred, _, _ = tiled_pred(sfe.make_tile_fn(model, cfg, C.FP32), None, img1,
+                            img2, None, crop=(32, 48), overlap=0.7,
+                            with_conf=True, num_channels=1, tile_batch=4)
+    assert pred.shape == (1, 48, 72, 1) and n_tiles == 9
+    assert autograd_kernels.launch_counts() == chip_smoke.stereoflow_launches(
+        cfg, "tiled", chunks=3)
+
+
+def test_stereoflow_cells_are_the_published_recipes():
+    """Phase 15's cells: CroCo-Stereo's and CroCo-Flow's crops, batches,
+    criteria and LRs (croco/stereoflow/train.py's defaults, which the
+    parser in stereoflow/driver.py keeps) on the v2 ViT-L / Base decoder with
+    RoPE100."""
+    from spann3r_torch.models.croco_pretrain import parse_croco_model
+    from spann3r_torch.stereoflow.driver import get_args_parser
+
+    cfg, _ = parse_croco_model(chip_smoke.STEREOFLOW_MODEL)
+    assert (cfg.enc.dim, cfg.enc.depth, cfg.dec.dim, cfg.dec.depth,
+            cfg.enc.rope_base) == (1024, 24, 768, 12, 100.0)
+    for task, (_, _, crop, b, spec, lr, _) in \
+            chip_smoke.STEREOFLOW_CELLS.items():
+        a = get_args_parser().parse_args([task, "--output_dir", "x",
+                                          "--dataset", "y"])
+        assert (tuple(a.crop), a.batch_size, a.criterion, a.lr) == \
+            (crop, b, spec, lr)
+    assert chip_smoke.STEREOFLOW_TILE_BATCH == a.tile_batch
+    assert chip_smoke.STEREOFLOW_OVERLAP == a.val_overlap
+
+
+@pytest.mark.parametrize("task", ["stereo", "flow", "tiled"])
+def test_phase3_holds_the_stereoflow_attention_shapes(monkeypatch, task):
+    """Phase 3's stereoflow shapes (STEREOFLOW_SHAPES) are the ones the
+    binocular forward of the published configuration gives K2 and K3 at
+    each cell's crop: heads, query and key tokens, head dim, self or
+    cross, RoPE, and the batch (the encoder over both images of B pairs,
+    the decoder over image 1's; the tiled test's B is tile_batch).
+    Recorded on the CPU at the published widths with one block of each
+    stack and one pair, the batch scaled; positions the patch grid's."""
+    import dataclasses
+
+    from spann3r_torch import config as C
+    from spann3r_torch.models import croco_downstream as cd
+    from spann3r_torch.models import vit
+    from spann3r_torch.models.croco_downstream import croco_kwargs_from_cfg
+    from spann3r_torch.models.croco_pretrain import parse_croco_model
+    from spann3r_torch.stereoflow import engine as sfe
+
+    torch.set_num_threads(1)
+    cell = chip_smoke.STEREOFLOW_CELLS["stereo" if task == "tiled" else task]
+    crop, b = cell[2], (chip_smoke.STEREOFLOW_TILE_BATCH if task == "tiled"
+                        else cell[3])
+    cfg = sfe.cfg_from_croco_args(croco_kwargs_from_cfg(parse_croco_model(
+        chip_smoke.STEREOFLOW_MODEL)[0]), crop)
+    cfg = dataclasses.replace(cfg, enc=dataclasses.replace(cfg.enc, depth=1),
+                              dec=dataclasses.replace(cfg.dec, depth=1))
+    model = cd.croco_backbone(cfg, "cpu", torch.Generator().manual_seed(0))
+    layout, seen, rotated = [None], set(), set()
+    grid = chip_smoke.STEREOFLOW_GRID[(crop[0] // 16) * (crop[1] // 16)]
+    want_pos = vit.patch_positions(*grid)
+
+    def tagged(fn, tag):
+        def run(*args, **kwargs):
+            layout[0] = tag
+            return fn(*args, **kwargs)
+        return run
+
+    def sdpa(q, k, v, scale):
+        bq, h, n, d = q.shape
+        seen.add((bq, h, n, k.shape[2], d, layout[0]))
+        return torch.zeros_like(q)
+
+    def rope_2d_qk(q, k, qpos, kpos, base):
+        assert base == 100.0
+        assert torch.equal(qpos[0], want_pos) and torch.equal(kpos[0],
+                                                              want_pos)
+        rotated.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                     q.shape[3], layout[0]))
+        return q, k
+
+    monkeypatch.setattr(vit, "self_attention",
+                        tagged(vit.self_attention, "self"))
+    monkeypatch.setattr(vit, "cross_attention",
+                        tagged(vit.cross_attention, "cross"))
+    monkeypatch.setattr(attention, "sdpa", sdpa)
+    monkeypatch.setattr(attention, "rope_2d_qk", rope_2d_qk)
+    img = torch.zeros(1, *crop, 3)
+    with torch.no_grad():
+        cd.downstream_binocular(model, img, img, cfg, lambda s, hw: None,
+                                C.FP32)
+
+    def scaled(bq, *rest):
+        # one pair here: the encoder's batch 2, the decoder's 1
+        return (bq * b, *rest)
+
+    ours = [s for s in chip_smoke.STEREOFLOW_SHAPES
+            if s[0].startswith(task)]
+    want = {(bb, h, n, m, d, lay) for _, bb, h, n, m, d, lay, _ in ours}
+    assert {scaled(*s) for s in seen} == want
+    assert {scaled(*s) for s in rotated} == want
+    assert all(r for *_, r in ours)

@@ -509,3 +509,46 @@ def test_sdpa_kernels_refuse_other_head_dims(dev, d):
     lse = torch.zeros((1, 2, 8), device=dev)
     with pytest.raises(ValueError, match="head dim 32 or 64"):
         attention.sdpa_backward_cuda(q, q, q, q, lse, 0.125)
+
+
+# the stereo and flow finetuning path: CroCo-Stereo's crop 352x704 gives a
+# 22x44 grid (968 = 15 * 64 + 8 tokens, a ragged 8-row tile), CroCo-Flow's
+# 320x384 a 20x24 grid (480 tokens); a narrow batch and head count here,
+# chip_smoke.py phase 3 holds the path's own
+STEREOFLOW_GRIDS = {968: (22, 44), 480: (20, 24)}
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("layout", ["self", "cross"])
+@pytest.mark.parametrize("n", list(STEREOFLOW_GRIDS))
+def test_sdpa_kernels_at_the_stereoflow_token_counts(dev, dt, layout, n):
+    """K2 and its backward on 968 and 480 tokens against their plain
+    versions, q, k, v in the encoder's and the decoder's layouts."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _sdpa_operands_d(layout, dtype, dev, n, n, 2, 3, 64, seed=95)
+    out, lse = attention.sdpa_cuda(q, k, v, 0.125, with_lse=True)
+    _assert_scaled(out, attention.sdpa_plain(q, k, v, 0.125),
+                   1e-4 if dt == "fp32" else tol)
+    dout = _randn((2, n, 3, 64), dtype, dev, 96).transpose(1, 2)
+    got = attention.sdpa_backward_cuda(q, k, v, dout, lse, 0.125)
+    want = attention.sdpa_backward_plain(q, k, v, dout, lse, 0.125)
+    for g, w in zip(got, want):
+        _assert_scaled(g, w, 1e-4 if dt == "fp32" else tol)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("n", list(STEREOFLOW_GRIDS))
+def test_rope_kernels_at_the_stereoflow_grids(dev, dt, n):
+    """K3 both ways on q and k slices of one qkv projection at the
+    rectangular patch grids' positions, stride 0 over the batch, as the
+    binocular forward gives them."""
+    from spann3r_torch.models.vit import patch_positions
+
+    dtype, _ = DTYPES[dt]
+    pos = patch_positions(*STEREOFLOW_GRIDS[n], dev)[None].expand(2, -1, -1)
+    q, k, _ = _sdpa_operands_d("self", dtype, dev, n, n, 2, 3, 64, seed=97)
+    rope_tol = 8e-3 if dtype == torch.bfloat16 else 1e-5
+    for sign in (1.0, -1.0):
+        qr, kr = rope.rope_2d_qk_cuda(q, k, pos, pos, 100.0, sign)
+        _assert_close(qr, rope.rope_2d_plain(q, pos, 100.0, sign), rope_tol)
+        _assert_close(kr, rope.rope_2d_plain(k, pos, 100.0, sign), rope_tol)

@@ -52,6 +52,7 @@ COPIES = [
     "habitat_gen/generator.py", "habitat_gen/scripts.py", "datasets/pairs.py",
     "tools/extract_crops.py", "habitat_gen/__init__.py",
     "tools/render_dtu.py", "utils/viz3d.py",
+    "stereoflow/io.py", "stereoflow/augmentor.py", "stereoflow/datasets.py",
 ]
 # the native library builds beside the port's kernels, under a name that
 # is renamed into place

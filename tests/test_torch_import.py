@@ -58,6 +58,14 @@ MODULES = [
     "spann3r_torch.models.global_align", "spann3r_torch.utils.viz3d",
     "spann3r_torch.parallel.streams", "spann3r_torch.tools.render_dtu",
     "spann3r_torch.tools.serving_table",
+    "spann3r_torch.models.croco_downstream", "spann3r_torch.stereoflow",
+    "spann3r_torch.stereoflow.io", "spann3r_torch.stereoflow.augmentor",
+    "spann3r_torch.stereoflow.datasets", "spann3r_torch.stereoflow.criterion",
+    "spann3r_torch.stereoflow.head", "spann3r_torch.stereoflow.tiling",
+    "spann3r_torch.stereoflow.engine", "spann3r_torch.stereoflow.driver",
+    "spann3r_torch.stereoflow_train", "spann3r_torch.stereoflow_test",
+    "spann3r_torch.tools.stereoflow_fixtures",
+    "spann3r_torch.tools.stereoflow_profile",
 ]
 
 
