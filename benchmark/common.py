@@ -1,0 +1,188 @@
+"""What every driver shares: the configuration read into the program's
+objects, the model built with the benchmark's weights, the device's
+record, the host's clock, the reservoir that samples finished requests,
+the comparison of two pointmap sets, and the check of the heads alone."""
+from __future__ import annotations
+
+import dataclasses
+import math
+import random
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from benchmark import weights as bw
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass
+class Ctx:
+    """One run: the cell's configuration and traffic, its seed, window and
+    trace flag, the device, and the process's start on the host clock."""
+    cfg: dict
+    traffic: dict
+    seed: int
+    seconds: float
+    trace: bool
+    device: torch.device
+    t_start: float
+    limits: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # readings kept for the record beside the compared ones
+    notes: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def rng(self, salt: int) -> np.random.Generator:
+        """A numpy generator for one purpose of this run, from the seed."""
+        return np.random.default_rng([int(self.seed) & 0xFFFFFFFFFFFF, salt])
+
+
+def port_configs(cfg: dict):
+    """The program's configuration and precision for a configuration file."""
+    from spann3r_torch.config import (DUSt3RConfig, MemoryConfig, Precision,
+                                      Spann3RConfig, ViTConfig)
+    inf = {"inf": math.inf, "-inf": -math.inf}
+    mode = lambda m: (m[0], float(inf.get(m[1], m[1])), float(inf.get(m[2], m[2])))
+    d = DUSt3RConfig(
+        img_size=tuple(cfg.get("img_size", (512, 512))),
+        patch_size=cfg["patch_size"],
+        enc=ViTConfig(dim=cfg["enc_embed_dim"], depth=cfg["enc_depth"],
+                      num_heads=cfg["enc_num_heads"], mlp_ratio=cfg["mlp_ratio"],
+                      rope_base=cfg["rope_base"]),
+        dec=ViTConfig(dim=cfg["dec_embed_dim"], depth=cfg["dec_depth"],
+                      num_heads=cfg["dec_num_heads"], mlp_ratio=cfg["mlp_ratio"],
+                      rope_base=cfg["rope_base"]),
+        head_type=cfg["head_type"], depth_mode=mode(cfg["depth_mode"]),
+        conf_mode=mode(cfg["conf_mode"]), dpt_feature_dim=cfg["dpt_feature_dim"],
+        dpt_last_dim=cfg["dpt_last_dim"],
+        dpt_layer_dims=tuple(cfg["dpt_layer_dims"]),
+        out_channels=cfg["out_channels"])
+    p = cfg["precision"]
+    prec = Precision(compute_dtype=DTYPES[p["compute"]],
+                     head_dtype=DTYPES[p["heads"]])
+    if cfg["model"] == "dust3r":
+        return d, prec
+    m = cfg["memory"]
+    s = Spann3RConfig(
+        dust3r=d,
+        memory=MemoryConfig(long_mem_size=m["long_mem_size"],
+                            work_mem_size=m["work_mem_size"],
+                            attn_thresh=m["attn_thresh"],
+                            sim_thresh=m["sim_thresh"],
+                            mem_dropout=m["mem_dropout"]),
+        value_enc_depth=cfg["value_enc_depth"], value_enc_dim=cfg["value_enc_dim"],
+        value_enc_heads=cfg["value_enc_heads"], attn_head_in=cfg["attn_head_in"],
+        attn_head_out=cfg["attn_head_out"])
+    return s, prec
+
+
+def build_program_model(ctx: Ctx):
+    """The program's model for the configuration, on the device, holding
+    the benchmark's weights for the seed: built on the meta device, its
+    storage allocated on the device, then filled."""
+    from spann3r_torch.models.dust3r import DUSt3R
+    from spann3r_torch.models.spann3r import Spann3R
+
+    pcfg, prec = port_configs(ctx.cfg)
+    with torch.device("meta"):
+        model = DUSt3R(pcfg) if ctx.cfg["model"] == "dust3r" else Spann3R(pcfg)
+    model = model.to_empty(device=ctx.device)
+    w = bw.generate(ctx.cfg, ctx.seed, ctx.device)
+    model.load_state_dict(w, strict=True)
+    del w
+    return model.eval(), pcfg, prec
+
+
+def set_tf32_off() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Reservoir:
+    """Keeps one item drawn uniformly, from the seed, among all offered."""
+
+    def __init__(self, seed: int):
+        self.rng = random.Random(seed)
+        self.n = 0
+        self.item = None
+
+    def offer(self, item_fn):
+        """item_fn() makes the item; it is called only when kept."""
+        self.n += 1
+        if self.rng.randrange(self.n) == 0:
+            self.item = item_fn()
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| over the whole tensor, fp64."""
+    g, w = got.double(), want.double()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
+
+
+def percentile(values, q: float) -> float:
+    """The q-th percentile by linear interpolation (numpy's default)."""
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+class Window:
+    """The measured window on the host clock: open() marks its start;
+    `over` says whether its seconds have run out."""
+
+    def __init__(self, seconds: float):
+        self.seconds = seconds
+        self.t0: Optional[float] = None
+
+    def open(self) -> float:
+        self.t0 = time.perf_counter()
+        return self.t0
+
+    @property
+    def over(self) -> bool:
+        return time.perf_counter() - self.t0 >= self.seconds
+
+
+def program_head(dust3r_model, dcfg, prec):
+    """The program's DPT head as a function of (side, the reference's
+    hook states, (H, W))."""
+    from spann3r_torch.models import dust3r as d3
+
+    return lambda num, states, hw: d3.downstream_head(
+        dust3r_model, num, d3.states_from_hooks(dcfg, states), hw, dcfg, prec)
+
+
+def head_rel_err(ref, head, img1, img2) -> float:
+    """The heads alone: head(side, states, hw), on the reference's fp32
+    decoder states of the pairs (img1[i], img2[i]), against the
+    reference's heads on the same states; the worst relative error of a
+    pointmap or a confidence of either side. The comparison of the outputs
+    cannot see the heads' precision under the bf16 transformer's rounding
+    (PERF.md); this sees it. The drivers run it after the window, with the
+    program alive."""
+    hw = tuple(img1.shape[1:3])
+    worst = 0.0
+    with torch.no_grad():
+        feats, pos = ref.encode(torch.cat([img1, img2]))
+        b = img1.shape[0]
+        s1, s2 = ref.decode(feats[:b], feats[b:], pos[:b], pos[b:])
+        for num, states in ((1, s1), (2, s2)):
+            want, got = ref.head(num, states, hw), head(num, states, hw)
+            worst = max([worst] + [rel_err(got[k], want[k]) for k in ("pts3d", "conf")])
+    return worst
+
+
+def limited(ctx: Ctx, numbers: Dict[str, float]) -> Dict[str, tuple]:
+    """{name: (reading, limit)} of each number that the traffic file gives
+    a limit; the other readings go to the notes."""
+    missing = sorted(set(ctx.limits) - set(numbers))
+    if missing:
+        raise KeyError(f"limits name numbers the check does not make: {missing}")
+    ctx.notes.update({k: v for k, v in numbers.items() if k not in ctx.limits})
+    return {k: (numbers[k], ctx.limits[k]) for k in ctx.limits}
