@@ -1,25 +1,56 @@
-"""The controls of a cell's comparison, on the cell's own inputs at its own
-sizes. Each must fail the cell's limits; the benchmark's runs never run
-them.
+"""The two sides of each limit of a cell's comparison, on the cell's own
+inputs at its own sizes; the benchmark's runs never run them.
 
-- `fp8`: the plain reference put in the program's place, with every linear
-  layer's and attention product's inputs rounded to float8 e4m3, the
-  precision below the configuration's bfloat16 transformer;
+Entries that must pass the cell's limits (where sound runs land):
+
+- `program`: the program, as the benchmark runs it;
+- `bf16-twin`: the plain reference put in the program's place with every
+  linear layer's and attention product's inputs rounded to bfloat16, the
+  configuration's own transformer precision, its heads in fp32 as the
+  configuration states: where sound rounding lands with no program code
+  involved.
+
+Entries that must fail them:
+
+- `fp8`: the plain reference put in the program's place, with the same
+  operands rounded to float8 e4m3, the precision below the configuration's
+  bfloat16 transformer;
 - `heads-tf32`: the program with its DPT heads' products in TF32, the
   precision below the configuration's float32 heads (TF32 off);
 - `heads-bf16`: the program with its heads in bfloat16, its own serving
-  path (`BF16_FAST`).
+  path (`BF16_FAST`);
+- `tenth-frames` (online cells): the program with every tenth pair's
+  reference-frame pointmap scaled by 1.5, the fault on a tenth of the
+  frames that the tail ratios exist for;
+- `dedup-off` (online cells): the program with its write never skipped as
+  a duplicate, which `dedup_skip_gap` exists for.
 
-    python3 benchmark/control.py --workload <cell> --control <name> --seed <n> [--seed <n> ...]
+In an online cell each entry runs every distinct video of the traffic, as
+the window of `drivers/stream_step.py` does (reset, `put_frame` and `step`
+a frame at a time, each output on the host, the last frame's target
+prediction), with no window, and is judged as a run is, over the frames
+of all the videos. The references follow the decisions of what stands in
+the program's place. In the pairs cell the program's entries run the
+cell's module, `drivers/pairs.py`, with a window of `--seconds`.
 
-Prints one JSON line a seed: {workload, control, seed, checks {name:
-{value, limit}}, fails} where fails says whether the control failed a
-limit, as it must.
+    python3 benchmark/control.py --workload <cell> --control <name> [--control <name> ...] --seed <n> [--seed <n> ...] [--per-frame PATH]
+
+Prints one JSON line a seed and entry: {workload, control, seed, checks
+{name: {value, limit}}, notes, fails, must_fail, seconds}, where `fails`
+says whether the entry failed a limit and `must_fail` whether it has to.
+`--per-frame` appends to PATH, for each video of an online entry, the
+frame-by-frame relative errors of the entry and of float8, the dedup
+decisions it took, the fp32 reference's own, and the bank's counters after
+each frame (the program's only), for a look at the tails. The calibration
+of the online limits (PERF.md) is one such command a process, three
+processes sharing the card.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import itertools
 import json
 import sys
 import time
@@ -34,29 +65,38 @@ from benchmark import weights as bw  # noqa: E402
 from benchmark.drivers import pairs, stream_step  # noqa: E402
 from benchmark.reference import model as rm  # noqa: E402
 
-CONTROLS = ("fp8", "heads-tf32", "heads-bf16")
+MUST_PASS = ("program", "bf16-twin")
+MUST_FAIL = ("fp8", "heads-tf32", "heads-bf16", "tenth-frames", "dedup-off")
+CONTROLS = MUST_PASS + MUST_FAIL
+REFERENCES = {"fp8": dict(lowp=True), "bf16-twin": dict(bf16=True)}
 
 
-def fp8_checks(ctx: common.Ctx) -> dict:
-    """The cell's checks with the float8 reference as the program."""
+def reference_checks(ctx: common.Ctx, control: str) -> tuple:
+    """The cell's numbers with the reference in the control's rounding as
+    the program, following its own dedup decisions: (numbers, each
+    video's record or None)."""
     tr, dev = ctx.traffic, ctx.device
     w = bw.generate(ctx.cfg, ctx.seed, dev)
-    exact, low = rm.Ref(w, ctx.cfg), rm.Ref(w, ctx.cfg, lowp=True)
+    exact, low = rm.Ref(w, ctx.cfg), rm.Ref(w, ctx.cfg, **REFERENCES[control])
     hw = tuple(tr["hw"])
     with torch.no_grad():
         if tr["driver"] == "stream_step":
-            # the yardstick's own float8 run in the program's place
-            frames = torch.from_numpy(generate.normalise(generate.room_video(
-                ctx.rng(0), tr["frames"], 1, hw, dev))).to(dev)
-            head = common.head_rel_err(exact, low.head, frames[0], frames[1])
-            del w, exact
-            outs, log = [], []
-            rm.stream(low, frames, lambda t, p, c: outs.append((p, c)), log=log)
-            # the control's own write decisions, which the yardsticks follow
-            dups = [None] + [torch.tensor([own for _, own in row]) for row in log]
-            numbers = stream_step.yardstick_checks(
-                ctx, frames, lambda t, s: (outs[t][0][s], outs[t][1][s]), dups)
-        elif tr["driver"] == "pairs":
+            records = []
+            for v in range(tr["videos"]):
+                frames = torch.from_numpy(generate.normalise(generate.room_video(
+                    ctx.rng(v), tr["frames"], 1, hw, dev))).to(dev)
+                if v == 0:
+                    head = common.head_rel_err(exact, low.head, frames[0], frames[1])
+                outs, log = [], []
+                rm.stream(low, frames, lambda t, p, c: outs.append((p, c)), log=log)
+                # the control's own write decisions, which the yardsticks follow
+                dups = [None] + [torch.tensor([own for _, own in row]) for row in log]
+                records.append(stream_step.yardstick_errors(
+                    ctx, frames, lambda t, s: (outs[t][0][s], outs[t][1][s]), dups))
+                del frames, outs
+            numbers = stream_step.pooled_numbers(records, ctx.cfg["memory"]["sim_thresh"])
+            return dict(numbers, head_rel_err=head), records
+        if tr["driver"] == "pairs":
             scenes = [generate.scene(ctx.rng(s), tr["views"], hw)
                       for s in range(tr["scenes"])]
             ij = pairs.complete_pairs(tr["views"])
@@ -64,7 +104,6 @@ def fp8_checks(ctx: common.Ctx) -> dict:
             first = ij[:tr["batch"]]
             head = common.head_rel_err(exact, low.head, imgs[[i for i, _ in first]],
                                        imgs[[j for _, j in first]])
-            del w, exact
             feats, pos = low.encode(imgs)
             r1s, r2s = [], []
             for i, j in ij:
@@ -72,16 +111,66 @@ def fp8_checks(ctx: common.Ctx) -> dict:
                 r1s.append(low.head(1, s1, hw))
                 r2s.append(low.head(2, s2, hw))
             cat = lambda rs, k: torch.cat([r[k] for r in rs]).cpu().numpy()
-            out = {"pred1": {"pts3d": cat(r1s, "pts3d"), "conf": cat(r1s, "conf")},
+            got = {"pred1": {"pts3d": cat(r1s, "pts3d"), "conf": cat(r1s, "conf")},
                    "pred2": {"pts3d_in_other_view": cat(r2s, "pts3d"),
                              "conf": cat(r2s, "conf")}}
-            numbers = pairs.check(ctx, scenes, (0, out), ij)
-        else:
-            raise ValueError(f"no control for driver {tr['driver']!r}")
-    return common.limited(ctx, dict(numbers, head_rel_err=head))
+            return dict(pairs.check(ctx, scenes, (0, got), ij), head_rel_err=head), None
+    raise ValueError(f"no control for driver {tr['driver']!r}")
+
+
+def program_videos(ctx: common.Ctx) -> tuple:
+    """The program over every distinct video of an online cell, after the
+    run's warm-up, each as the run's window runs it, then checked as a run
+    checks them: (numbers, each video's record, with the bank's counters
+    after each frame under `bank`)."""
+    from spann3r_torch.models.spann3r import InferenceEngine
+
+    tr, dev = ctx.traffic, ctx.device
+    hw, n = tuple(tr["hw"]), tr["frames"]
+    model, pcfg, prec = common.build_program_model(ctx)
+    engine = InferenceEngine(model, pcfg, hw, prec, batch=1)
+    videos = [generate.room_video(ctx.rng(v), n, 1, hw, dev) for v in range(tr["videos"])]
+
+    def run_video(video, frames):
+        engine.reset()
+        outs, written = [], []
+        for i in range(frames):
+            res = engine.step(engine.put_frame(video[i]))
+            written.append(None if engine.mem is None else (engine.mem.size, engine.mem.wm))
+            if res is not None:
+                outs.append((res["res1"]["pts3d"].cpu(), res["res1"]["conf"].cpu()))
+            if i == frames - 1:
+                t = engine.target_prediction()
+                outs.append((t["pts3d"].cpu(), t["conf"].cpu()))
+        return outs, written
+
+    run_video(videos[0], tr["warmup_frames"])
+    kept = {v: run_video(video, n) for v, video in enumerate(videos)}
+    first = torch.from_numpy(generate.normalise(videos[0][:2])).to(dev)
+    head = common.head_rel_err(rm.Ref(bw.generate(ctx.cfg, ctx.seed, dev), ctx.cfg),
+                               common.program_head(model.dust3r, pcfg.dust3r, prec),
+                               first[0], first[1])
+    del engine, model, first
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    records = []
+    numbers = stream_step.check(ctx, videos, kept, hw, records)
+    for rec, (_, written) in zip(records, (kept[v] for v in sorted(kept))):
+        rec["bank"] = [None if w is None else (int(w[0][0]), int(w[1][0])) for w in written]
+    return dict(numbers, head_rel_err=head), records
 
 
 @contextlib.contextmanager
+def patched(module, name, fn):
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def heads_in_tf32():
     """The program's heads with TF32 on for their convolutions and
     products, and off again around them."""
@@ -95,35 +184,79 @@ def heads_in_tf32():
         finally:
             common.set_tf32_off()
 
-    d3.downstream_head = tf32_head
-    try:
-        yield
-    finally:
-        d3.downstream_head = orig
+    return patched(d3, "downstream_head", tf32_head)
 
 
-def program_control(cell: str, control: str, seed: int, seconds: float,
-                    device: str) -> dict:
-    """A run of the cell with the program's heads in the control's
-    precision: its checks {name: (value, limit)} and notes."""
-    spec = run.load_spec()
-    _, cfg, _ = run.cell_parts(spec, cell)
+def tenth_frames():
+    """Every tenth pair's reference-frame pointmap, as the pair step
+    returns it, scaled by 1.5."""
+    import spann3r_torch.models.spann3r as sp
+    orig, calls = sp.pair_step, itertools.count()
+
+    def altered(*a, **kw):
+        out = orig(*a, **kw)
+        if next(calls) % 10 == 9:
+            out.res1["pts3d"] = out.res1["pts3d"] * 1.5
+        return out
+
+    return patched(sp, "pair_step", altered)
+
+
+def dedup_off():
+    """The write never skipped as a duplicate."""
+    import spann3r_torch.models.memory as mem
+    return patched(mem, "check_sim", lambda state, k, *a: torch.zeros(
+        k.shape[0], dtype=torch.bool, device=k.device))
+
+
+FAULTS = {"heads-tf32": heads_in_tf32, "tenth-frames": tenth_frames,
+          "dedup-off": dedup_off}
+
+
+def program_checks(ctx: common.Ctx, cell: str, control: str, seconds: float) -> tuple:
+    """The program, or the program with the control's fault: (numbers,
+    each video's record or None)."""
     if control == "heads-bf16":
-        cfg = dict(cfg, precision=dict(cfg["precision"], heads="bfloat16"))
-    ctx = heads_in_tf32() if control == "heads-tf32" else contextlib.nullcontext()
-    with ctx:
-        res = run.execute(cell, seed, seconds, False, device, spec=spec, cfg=cfg,
+        ctx.cfg = dict(ctx.cfg, precision=dict(ctx.cfg["precision"], heads="bfloat16"))
+    fault = FAULTS[control]() if control in FAULTS else contextlib.nullcontext()
+    with fault:
+        if ctx.traffic["driver"] == "stream_step":
+            return program_videos(ctx)
+        if control in ("tenth-frames", "dedup-off"):
+            raise ValueError(f"{control} is a fault of the online cells")
+        res = run.execute(cell, ctx.seed, seconds, False, str(ctx.device), cfg=ctx.cfg,
                           t_start=time.perf_counter())
-    return {k: (c["value"], c["limit"]) for k, c in res["checks"].items()}, res["notes"]
+    return dict(res["notes"], **{k: c["value"] for k, c in res["checks"].items()}), None
+
+
+def _rounded(x):
+    if isinstance(x, float):
+        return float(f"{x:.6g}")
+    if isinstance(x, (list, tuple)):
+        return [_rounded(y) for y in x]
+    return x
+
+
+def per_frame_line(head: dict, rec: dict) -> dict:
+    """One video's frame-by-frame record (stream 0)."""
+    prog, fp8 = rec["prog"][0], rec["fp8"][0]
+    return dict(head, **_rounded({
+        "pts3d": [e[0] for e in prog], "conf": [e[1] for e in prog],
+        "fp8_pts3d": [e[0] for e in fp8], "fp8_conf": [e[1] for e in fp8],
+        "skip": [None if d is None else bool(d[0]) for d in rec["dups"]],
+        "bank": rec.get("bank"),
+        "ref_sim": [row[0][0] for row in rec["log"]],
+        "ref_skip": [row[0][1] for row in rec["log"]]}))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
-    ap.add_argument("--control", choices=CONTROLS, default="fp8")
+    ap.add_argument("--control", choices=CONTROLS, action="append")
     ap.add_argument("--seed", type=int, action="append", required=True)
     ap.add_argument("--seconds", type=float, default=1.0,
-                    help="the window of a control that runs the program")
+                    help="the window of the pairs cell's program entries")
+    ap.add_argument("--per-frame", type=Path, default=None)
     args = ap.parse_args(argv)
     run._environment()
     if not torch.cuda.is_available():
@@ -133,22 +266,27 @@ def main(argv=None) -> int:
     _, cfg, traffic = run.cell_parts(spec, args.workload)
     common.set_tf32_off()
     for seed in args.seed:
-        t0 = time.perf_counter()
-        if args.control == "fp8":
+        for control in args.control or ["fp8"]:
+            t0 = time.perf_counter()
             ctx = common.Ctx(cfg=cfg, traffic=traffic, seed=seed, seconds=0.0,
                              trace=False, device=torch.device("cuda:0"), t_start=t0,
                              limits=traffic["limits"])
-            checks, notes = fp8_checks(ctx), ctx.notes
-        else:
-            checks, notes = program_control(args.workload, args.control, seed,
-                                            args.seconds, "cuda:0")
-        print(json.dumps({
-            "workload": args.workload, "control": args.control, "seed": seed,
-            "notes": notes,
-            "checks": {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()},
-            "fails": any(not v <= lim for v, lim in checks.values()),
-            "seconds": time.perf_counter() - t0}), flush=True)
-        torch.cuda.empty_cache()
+            if control in REFERENCES:
+                numbers, records = reference_checks(ctx, control)
+            else:
+                numbers, records = program_checks(ctx, args.workload, control, args.seconds)
+            checks = common.limited(ctx, numbers)
+            head = {"workload": args.workload, "control": control, "seed": seed}
+            print(json.dumps(dict(
+                head, checks={k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()},
+                notes=ctx.notes, fails=any(not v <= lim for v, lim in checks.values()),
+                must_fail=control in MUST_FAIL, seconds=time.perf_counter() - t0)), flush=True)
+            if args.per_frame and records:
+                with args.per_frame.open("a") as f:
+                    for v, rec in enumerate(records):
+                        f.write(json.dumps(per_frame_line(dict(head, video=v), rec)) + "\n")
+            gc.collect()
+            torch.cuda.empty_cache()
     return 0
 
 

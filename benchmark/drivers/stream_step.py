@@ -67,7 +67,8 @@ def run(ctx: common.Ctx) -> dict:
 
     tracer = Tracer(ctx.trace, tr["trace_start"], tr["trace_frames"], ctx.device)
     tracer.warm_up()
-    sample = common.Reservoir(int(ctx.rng(100).integers(1 << 62)))
+    # the last run of each distinct video, which the check compares
+    kept = {}
     lat, done, unit = [], 0, 0
     t_close = None
     win = common.Window(ctx.seconds)
@@ -101,7 +102,7 @@ def run(ctx: common.Ctx) -> dict:
                 unit += 1
                 if win.over:
                     t_close = time.perf_counter()
-        sample.offer(lambda: (v % len(videos), outs, written))
+        kept[v % len(videos)] = (outs, written)
         v += 1
     window_s = t_close - t_open
     peak = torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else 0
@@ -118,9 +119,9 @@ def run(ctx: common.Ctx) -> dict:
         "notes": {"frames": done, "videos": v, "frame_ms_p50": common.percentile(lat, 50) * 1e3},
     }
     t_ref = time.perf_counter()
-    # the heads alone, on the sampled video's first pair, while the
-    # program is alive
-    first = torch.from_numpy(generate.normalise(videos[sample.item[0]][:2])).to(ctx.device)
+    # the heads alone, on the first video's first pair, while the program
+    # is alive
+    first = torch.from_numpy(generate.normalise(videos[0][:2])).to(ctx.device)
     head = common.head_rel_err(rm.Ref(bw.generate(ctx.cfg, ctx.seed, ctx.device), ctx.cfg),
                                common.program_head(model.dust3r, pcfg.dust3r, prec),
                                first[0], first[1])
@@ -128,22 +129,32 @@ def run(ctx: common.Ctx) -> dict:
     gc.collect()
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = check(ctx, videos, sample.item, hw)
+    numbers = check(ctx, videos, kept, hw)
     result["checks"] = common.limited(ctx, dict(numbers, head_rel_err=head))
     result["notes"]["reference_s"] = time.perf_counter() - t_ref
     return result
 
 
-def check(ctx, videos, sample, hw) -> dict:
-    """The sampled video's every output against the reference's run of the
-    same frames (fp32), in units of the error that float8 rounding makes
-    on the same frames, the references taking the program's dedup
-    decisions, which are judged on their own (PERF.md says why)."""
-    vi, outs, written = sample
-    frames = torch.from_numpy(generate.normalise(videos[vi])).to(ctx.device)
-    got = [(p.to(ctx.device), c.to(ctx.device)) for p, c in outs]
-    return yardstick_checks(ctx, frames, lambda t, s: (got[t][0][s], got[t][1][s]),
-                            write_decisions(written))
+def check(ctx, videos, kept, hw, records=None) -> dict:
+    """Every output of the last run of each distinct video that the window
+    ran (`kept`: {video: (outputs, written)}) against the reference's run of
+    the same frames (fp32), in units of the error that float8 rounding
+    makes on the same frames, the references taking the program's dedup
+    decisions, which are judged on their own (PERF.md says why); the
+    numbers are taken over the frames of all those videos. `records`, a
+    list, receives each video's record (yardstick_errors)."""
+    recs = []
+    for vi in sorted(kept):
+        outs, written = kept[vi]
+        frames = torch.from_numpy(generate.normalise(videos[vi])).to(ctx.device)
+        got = [(p.to(ctx.device), c.to(ctx.device)) for p, c in outs]
+        recs.append(yardstick_errors(ctx, frames,
+                                     lambda t, s: (got[t][0][s], got[t][1][s]),
+                                     write_decisions(written)))
+        del frames, got
+    if records is not None:
+        records += recs
+    return pooled_numbers(recs, ctx.cfg["memory"]["sim_thresh"])
 
 
 def write_decisions(written):
@@ -162,27 +173,16 @@ def write_decisions(written):
     return dups
 
 
-def yardstick_checks(ctx, frames, program, dups=None) -> dict:
+def yardstick_errors(ctx, frames, program, dups) -> dict:
     """Runs the fp32 reference and the float8 one over frames (T, B, H, W,
-    3); program(t, s) gives the program's (pointmap, confidence) of frame t
-    of stream s. Returns each number, the worst stream's:
-
-    - `*_err_over_fp8`: the median frame's relative L2 error of the
-      program over the median frame's error of float8, both against fp32,
-      so that the stream's own sensitivity to rounding, which varies with
-      the weights and the inputs, divides out;
-    - `*_p90_err_over_fp8`: the same at the 90th percentile of the frames,
-      which a fault on a tenth of the frames or more moves;
-    - with `dups` (write_decisions), which both references take in place
-      of their own dedup decisions, so that a decision flipped by rounding
-      does not part their banks from the program's: the decisions judged
-      on their own, against the fp32 reference's own check of the same
-      frames. `dedup_skip_gap` is the writes the program skipped less
-      those the reference's check skipped, in absolute value, over the
-      decisions; rounding flips decisions both ways, a wrong check one
-      way. `dedup_flip_share` (the decisions on which the two differ) and
-      `dedup_flip_margin` (the farthest from the threshold that they
-      differ) are kept for the record."""
+    3), both taking the decisions `dups` (write_decisions) in place of
+    their own dedup decisions, so that a decision flipped by rounding does
+    not part their banks from the program's; program(t, s) gives the
+    program's (pointmap, confidence) of frame t of stream s. Returns the
+    video's record: per stream, each frame's relative L2 error of the
+    program and of float8 against fp32 (`prog`, `fp8`: lists of
+    (pointmap, confidence)), the fp32 reference's own dedup check (`log`:
+    per write, each stream's (similarity, skip)) and `dups`."""
     w = bw.generate(ctx.cfg, ctx.seed, ctx.device)
     exact, log = [], []
     with torch.no_grad():
@@ -203,39 +203,58 @@ def yardstick_checks(ctx, frames, program, dups=None) -> dict:
 
     with torch.no_grad():
         rm.stream(rm.Ref(w, ctx.cfg, lowp=True), frames, on_frame, dups)
-    del w
+    return dict(errs, log=log, dups=dups)
+
+
+def pooled_numbers(records, thresh: float) -> dict:
+    """The numbers compared, each over the frames of all the records
+    (videos), the worst stream's:
+
+    - `*_err_over_fp8`: the median frame's relative L2 error of the
+      program over the median frame's error of float8, both against fp32,
+      so that the stream's own sensitivity to rounding, which varies with
+      the weights and the inputs, divides out;
+    - `*_p95_err_over_fp8`: the same at the 95th percentile of the frames,
+      which a fault on a twentieth of the frames or more moves (a 90th
+      percentile is blind to one on a tenth: PERF.md);
+    - the program's dedup decisions judged on their own, against the fp32
+      reference's own check of the same frames: `dedup_skip_gap` is the
+      writes the program skipped less those the reference's check skipped,
+      in absolute value, over the decisions; rounding flips decisions both
+      ways, a wrong check one way. `dedup_flip_share` (the decisions on
+      which the two differ) and `dedup_flip_margin` (the farthest from the
+      threshold that they differ) are kept for the record."""
+    b = len(records[0]["prog"])
     out = {}
     for i, name in ((0, "pts3d"), (1, "conf")):
-        med, p90, mp, mf = [], [], [], []
+        med, p95, mp, mf = [], [], [], []
         for s in range(b):
-            ep = [e[i] for e in errs["prog"][s]]
-            ef = [e[i] for e in errs["fp8"][s]]
+            ep = [e[i] for r in records for e in r["prog"][s]]
+            ef = [e[i] for r in records for e in r["fp8"][s]]
             # the upper median of each side's frames
             mp.append(sorted(ep)[len(ep) // 2])
             mf.append(sorted(ef)[len(ef) // 2])
             med.append(mp[-1] / max(mf[-1], 1e-30))
-            p90.append(common.percentile(ep, 90) / max(common.percentile(ef, 90), 1e-30))
-        out.update({f"{name}_err_over_fp8": max(med), f"{name}_p90_err_over_fp8": max(p90),
+            p95.append(common.percentile(ep, 95) / max(common.percentile(ef, 95), 1e-30))
+        out.update({f"{name}_err_over_fp8": max(med), f"{name}_p95_err_over_fp8": max(p95),
                     f"{name}_rel_err_median": max(mp), f"fp8_{name}_rel_err_median": min(mf)})
-    if dups is not None:
-        thresh = ctx.cfg["memory"]["sim_thresh"]
-        gap, share, margin, skips = [], [], [0.0], [0, 0]
+    gap, share, margin, skips = [], [], [0.0], [0, 0]
+    for s in range(b):
         # log[k] is the write of frame k + 1 (frame 0 writes nothing); with
         # no working memory to compare with (similarity -inf) the frame is
         # written
-        rows_of = [[(sim, own, bool(dups[k + 1][s])) for k, row in enumerate(log)
-                    for sim, own in [row[s]]] for s in range(b)]
-        for rows in rows_of:
-            prog_n = sum(pr for _, _, pr in rows)
-            own_n = sum(own for _, own, _ in rows)
-            flips = [abs(sim - thresh) for sim, own, pr in rows if own != pr]
-            n = max(len(rows), 1)
-            gap.append(abs(prog_n - own_n) / n)
-            share.append(len(flips) / n)
-            margin += [f for f in flips if f != float("inf")]
-            skips[0] += prog_n
-            skips[1] += own_n
-        out.update(dedup_skip_gap=max(gap), dedup_flip_share=max(share),
-                   dedup_flip_margin=max(margin), dedup_skipped_by_program=skips[0],
-                   dedup_skipped_by_reference=skips[1])
+        rows = [(sim, own, bool(r["dups"][k + 1][s])) for r in records
+                for k, row in enumerate(r["log"]) for sim, own in [row[s]]]
+        prog_n = sum(pr for _, _, pr in rows)
+        own_n = sum(own for _, own, _ in rows)
+        flips = [abs(sim - thresh) for sim, own, pr in rows if own != pr]
+        n = max(len(rows), 1)
+        gap.append(abs(prog_n - own_n) / n)
+        share.append(len(flips) / n)
+        margin += [f for f in flips if f != float("inf")]
+        skips[0] += prog_n
+        skips[1] += own_n
+    out.update(dedup_skip_gap=max(gap), dedup_flip_share=max(share),
+               dedup_flip_margin=max(margin), dedup_skipped_by_program=skips[0],
+               dedup_skipped_by_reference=skips[1])
     return out

@@ -12,7 +12,11 @@ a plain fp32 `torch.matmul` or convolution (TF32 off, set by the caller).
 `lowp=True` rounds the inputs and weights of every linear layer and of the
 attention products to float8 e4m3 (one scale per tensor): the precision
 below bfloat16 that a later change could be tempted by. The benchmark's
-control runs it to show that the comparison rejects it.
+control runs it to show that the comparison rejects it. `bf16=True`
+rounds the same operands to bfloat16, the configuration's own transformer
+precision, and leaves the heads' convolutions in fp32 as the
+configuration does: where sound rounding lands with no program code
+involved, a twin that must pass the comparison.
 
 This file imports nothing of the program and no JAX.
 """
@@ -28,6 +32,11 @@ NEG_INF = -1e30
 FP8_MAX = 448.0
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16, back in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
 def fp8(x: torch.Tensor) -> torch.Tensor:
     """x rounded to float8 e4m3 with one scale for the tensor, back in
     fp32."""
@@ -40,18 +49,18 @@ class Ref:
     its sizes (the configuration file's keys)."""
 
     def __init__(self, weights: Dict[str, torch.Tensor], cfg: dict,
-                 lowp: bool = False):
+                 lowp: bool = False, bf16: bool = False):
         self.w = weights
         self.cfg = cfg
-        self.lowp = lowp
+        self.round = fp8 if lowp else bf16_round if bf16 else None
         # the backbone's keys sit under "dust3r." inside Spann3R
         self.p = "dust3r." if cfg["model"] == "spann3r" else ""
 
     # -- primitives ----------------------------------------------------------
 
     def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.lowp:
-            a, b = fp8(a), fp8(b)
+        if self.round is not None:
+            a, b = self.round(a), self.round(b)
         return torch.matmul(a, b)
 
     def linear(self, name: str, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """On the card only (each test decides in a fixture and skips elsewhere):
 every cell's command runs a short window and prints its result line in
-the contract's form, and each control of each cell fails its limits.
+the contract's form, each control of each cell fails its limits on every
+video, and the bf16 twin passes them.
 
     python3 -m pytest -q benchmark/tests/test_card.py
 """
@@ -42,9 +43,28 @@ def test_cell_runs(card, cell):
     assert all(m["value"] > 0 for m in res["metrics"].values())
 
 
-@pytest.mark.parametrize("control", ["fp8", "heads-tf32", "heads-bf16"])
-@pytest.mark.parametrize("cell", CELLS)
-def test_control_fails(card, cell, control):
+def _control_lines(cell, control):
     out = _run(["benchmark/control.py", "--workload", cell, "--control", control,
                 "--seed", str(2**31 + 5)])
-    assert json.loads(out.stdout.strip().splitlines()[-1])["fails"]
+    return [json.loads(line) for line in out.stdout.strip().splitlines()]
+
+
+ONLINE_FAULTS = ["tenth-frames", "dedup-off"]
+
+
+def _online(cell):
+    return run.cell_parts(run.load_spec(), cell)[2]["driver"] == "stream_step"
+
+
+@pytest.mark.parametrize("cell,control", [
+    (c, k) for c in CELLS for k in ["fp8", "heads-tf32", "heads-bf16"]
+    + (ONLINE_FAULTS if _online(c) else [])])
+def test_control_fails(card, cell, control):
+    lines = _control_lines(cell, control)
+    assert lines and all(d["fails"] and d["must_fail"] for d in lines), lines
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_bf16_twin_passes(card, cell):
+    lines = _control_lines(cell, "bf16-twin")
+    assert lines and not any(d["fails"] or d["must_fail"] for d in lines), lines

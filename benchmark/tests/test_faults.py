@@ -16,29 +16,29 @@ import torch
 from benchmark.tests import tiny
 
 
-def _alter_every(n, fn):
-    """A wrapper of fn that scales the first pointmap it returns by 2 on
-    every n-th call."""
+def _alter_every(n, fn, scale=2.0):
+    """A wrapper of fn that scales the first pointmap it returns by `scale`
+    on every n-th call."""
     calls = itertools.count()
 
     def wrapped(*a, **kw):
         out = fn(*a, **kw)
         if next(calls) % n == n - 1:
-            _scale_first_pts(out)
+            _scale_first_pts(out, scale)
         return out
     return wrapped
 
 
-def _scale_first_pts(out):
+def _scale_first_pts(out, scale):
     if isinstance(out, dict):
         if "pts3d" in out and torch.is_tensor(out["pts3d"]):
-            out["pts3d"] = out["pts3d"] * 2.0
+            out["pts3d"] = out["pts3d"] * scale
             return True
-        return any(_scale_first_pts(v) for v in out.values())
+        return any(_scale_first_pts(v, scale) for v in out.values())
     if isinstance(out, (tuple, list)):
-        return any(_scale_first_pts(v) for v in out)
+        return any(_scale_first_pts(v, scale) for v in out)
     if hasattr(out, "_fields"):
-        return any(_scale_first_pts(v) for v in out)
+        return any(_scale_first_pts(v, scale) for v in out)
     return False
 
 
@@ -59,6 +59,14 @@ def answer_altered_some_frames(mp):
     on the bank's prune frames would be (the tail's comparison)."""
     import spann3r_torch.models.spann3r as sp
     mp.setattr(sp, "pair_step", _alter_every(5, sp.pair_step))
+
+
+def answer_altered_tenth_frames(mp):
+    """Every tenth pair's reference-frame pointmap scaled by 1.5, as the
+    `tenth-frames` control plants it at full size (the tail's
+    comparison)."""
+    import spann3r_torch.models.spann3r as sp
+    mp.setattr(sp, "pair_step", _alter_every(10, sp.pair_step, 1.5))
 
 
 def dedup_off(mp):
@@ -100,7 +108,8 @@ def half_batch_pairs(mp):
 
 FAULTS = {
     "spann3r.online-512": [state_unchanged_memory, answer_altered_stream,
-                           answer_altered_some_frames, dedup_off, dedup_threshold_moved],
+                           answer_altered_some_frames, answer_altered_tenth_frames,
+                           dedup_off, dedup_threshold_moved],
     "dust3r.pairs-512": [answer_altered_pairs, half_batch_pairs],
 }
 SECONDS = {"spann3r.online-512": 3.0, "dust3r.pairs-512": 0.5}
