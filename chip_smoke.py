@@ -1439,7 +1439,8 @@ def phase_slice(records, cfg, model, card, profile_out=None):
 def device_profile(run):
     """One call of run() under torch.profiler: (device busy ms, the union
     of the kernel intervals; profiled wall ms; {kernel name: (ms,
-    launches)}; device events)."""
+    launches)}; device events). The device side of a profiler span (a user
+    annotation) is no device operation and is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1450,7 +1451,8 @@ def device_profile(run):
         run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
     by_name = {}
     spans = []
     for e in dev_events:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import BF16, DUSt3RConfig, Precision
+from ..utils.trace import span
 from . import dust3r as d3
 
 
@@ -51,7 +52,10 @@ def inference(pairs: Sequence[Tuple[dict, dict]], model: d3.DUSt3R,
         for v in (v1, v2):
             frames.setdefault(int(v["idx"]), np.asarray(v["img"]))
     idxs = sorted(frames)
-    imgs = torch.from_numpy(np.concatenate([frames[i] for i in idxs])).to(dev)
+    # the frames, like each batch's index lists below, reach the card as a
+    # copy from pageable memory, which waits for the device
+    with span("spann3r.sync"):
+        imgs = torch.from_numpy(np.concatenate([frames[i] for i in idxs])).to(dev)
     feats, pos = d3.encode_image(model, imgs, cfg, prec)
     row = {i: k for k, i in enumerate(idxs)}
     hw = tuple(imgs.shape[1:3])
@@ -60,16 +64,19 @@ def inference(pairs: Sequence[Tuple[dict, dict]], model: d3.DUSt3R,
     i2_all = [int(b["idx"]) for _, b in pairs]
     outs = []
     for s in range(0, len(pairs), batch_size):
-        sel1 = torch.tensor([row[i] for i in i1_all[s:s + batch_size]],
-                            device=dev)
-        sel2 = torch.tensor([row[i] for i in i2_all[s:s + batch_size]],
-                            device=dev)
+        with span("spann3r.sync"):
+            sel1 = torch.tensor([row[i] for i in i1_all[s:s + batch_size]],
+                                device=dev)
+        with span("spann3r.sync"):
+            sel2 = torch.tensor([row[i] for i in i2_all[s:s + batch_size]],
+                                device=dev)
         outs.append(decode_pairs(model, feats.index_select(0, sel1),
                                  feats.index_select(0, sel2), pos[:1], hw,
                                  cfg, prec))
 
     def stack(j, key):
-        return torch.cat([o[j][key] for o in outs]).float().cpu().numpy()
+        with span("spann3r.to_host"):
+            return torch.cat([o[j][key] for o in outs]).float().cpu().numpy()
 
     return {
         "view1": {"idx": i1_all},

@@ -26,6 +26,7 @@ import torch
 from ..config import MemoryConfig
 from ..ops.layers import layer_norm
 from ..ops.memory_read import memory_read_attention
+from ..utils.trace import span
 
 NEG_INF = -1e30
 
@@ -73,17 +74,19 @@ def memory_read(norms, state: MemoryState, feat: torch.Tensor,
     (B, P, D), state with the attention statistic accumulated). Streams
     with an empty bank get feat unchanged: the kernel's output for them is
     discarded here. Training reads are `memory_read_train`."""
-    q = layer_norm(norms.norm_q, feat, ln_eps)
-    k = layer_norm(norms.norm_k, state.k.to(feat.dtype), ln_eps)
-    vv = layer_norm(norms.norm_v, state.v.to(feat.dtype), ln_eps)
-    has_mem = state.size > 0
-    out, attn_slot = memory_read_attention(q, k, vv, state.size, attn_thresh)
-    if res:
-        out = out + feat
-    out = torch.where(has_mem[:, None, None], out, feat)
-    new_attn = state.attn + torch.where(has_mem[:, None], attn_slot,
-                                        torch.zeros_like(attn_slot))
-    return out, state._replace(attn=new_attn)
+    with span("spann3r.memory.read"):
+        q = layer_norm(norms.norm_q, feat, ln_eps)
+        k = layer_norm(norms.norm_k, state.k.to(feat.dtype), ln_eps)
+        vv = layer_norm(norms.norm_v, state.v.to(feat.dtype), ln_eps)
+        has_mem = state.size > 0
+        out, attn_slot = memory_read_attention(q, k, vv, state.size,
+                                               attn_thresh)
+        if res:
+            out = out + feat
+        out = torch.where(has_mem[:, None, None], out, feat)
+        new_attn = state.attn + torch.where(has_mem[:, None], attn_slot,
+                                            torch.zeros_like(attn_slot))
+        return out, state._replace(attn=new_attn)
 
 
 def memory_read_train(norms, state: MemoryState, feat: torch.Tensor,
@@ -144,8 +147,12 @@ def _append(state: MemoryState, feat_k: torch.Tensor,
     attn = state.attn.clone()
     k[rows, idx] = feat_k.to(k.dtype)
     v[rows, idx] = feat_v.to(v.dtype)
-    count[rows, idx] = 0.0
-    attn[rows, idx] = 0.0
+    # a Python scalar written through an index reaches the card as a copy
+    # from pageable memory, which waits for the device
+    with span("spann3r.sync"):
+        count[rows, idx] = 0.0
+    with span("spann3r.sync"):
+        attn[rows, idx] = 0.0
     return state._replace(k=k, v=v, count=count, attn=attn,
                           size=state.size + p)
 
@@ -211,38 +218,46 @@ def memory_prune(state: MemoryState, cfg: MemoryConfig) -> MemoryState:
 def add_mem_check(state: MemoryState, feat_k: torch.Tensor,
                   feat_v: torch.Tensor, cfg: MemoryConfig) -> MemoryState:
     """Eval-mode write: dedup -> append -> spill -> prune, each decided per
-    stream."""
-    b, p = feat_k.shape[:2]
-    if cfg.sim_thresh >= 1.0:  # dedup disabled
-        dup = torch.zeros((b,), dtype=torch.bool, device=feat_k.device)
-    else:
-        dup = check_sim(state, feat_k, p, cfg.work_mem_size, cfg.sim_thresh)
+    stream. The host waits for the device three times, each in a
+    `spann3r.sync` span: twice in the append, and where it reads whether
+    any stream prunes."""
+    with span("spann3r.memory.write"):
+        b, p = feat_k.shape[:2]
+        if cfg.sim_thresh >= 1.0:  # dedup disabled
+            dup = torch.zeros((b,), dtype=torch.bool, device=feat_k.device)
+        else:
+            dup = check_sim(state, feat_k, p, cfg.work_mem_size,
+                            cfg.sim_thresh)
 
-    s = _append(state, feat_k, feat_v)
-    s = s._replace(wm=s.wm + 1)
-    spill = s.wm > cfg.work_mem_size
+        s = _append(state, feat_k, feat_v)
+        s = s._replace(wm=s.wm + 1)
+        spill = s.wm > cfg.work_mem_size
 
-    if cfg.long_mem_size == 0:
-        # pure sliding window: evict the oldest frame by rolling the bank
-        # left by one frame's tokens
-        def roll(a):
-            return torch.roll(a, -p, dims=1)
+        if cfg.long_mem_size == 0:
+            # pure sliding window: evict the oldest frame by rolling the bank
+            # left by one frame's tokens
+            def roll(a):
+                return torch.roll(a, -p, dims=1)
 
-        evicted = MemoryState(roll(s.k), roll(s.v), roll(s.count),
-                              roll(s.attn), s.size - p, s.wm - 1, s.lm)
-        s = _per_stream_select(spill, evicted, s)
-    else:
-        # working -> long-term spill (counters only; the bank is contiguous)
-        s = s._replace(wm=torch.where(spill, s.wm - 1, s.wm),
-                       lm=torch.where(spill, s.lm + p, s.lm))
-        # prune streams whose long-term exceeds the budget; unreachable when
-        # the bank can never grow past long_mem_size
-        if cfg.long_mem_size < s.k.shape[1]:
-            need = s.lm > cfg.long_mem_size
-            if bool(need.any()):
-                s3 = memory_prune(s, cfg)
-                s3 = s3._replace(lm=torch.full_like(s3.lm, cfg.long_mem_size)
-                                 - s3.wm * p)
-                s = _per_stream_select(need, s3, s)
+            evicted = MemoryState(roll(s.k), roll(s.v), roll(s.count),
+                                  roll(s.attn), s.size - p, s.wm - 1, s.lm)
+            s = _per_stream_select(spill, evicted, s)
+        else:
+            # working -> long-term spill (counters only; the bank is
+            # contiguous)
+            s = s._replace(wm=torch.where(spill, s.wm - 1, s.wm),
+                           lm=torch.where(spill, s.lm + p, s.lm))
+            # prune streams whose long-term exceeds the budget; unreachable
+            # when the bank can never grow past long_mem_size
+            if cfg.long_mem_size < s.k.shape[1]:
+                need = s.lm > cfg.long_mem_size
+                with span("spann3r.sync"):
+                    prune = bool(need.any())
+                if prune:
+                    s3 = memory_prune(s, cfg)
+                    s3 = s3._replace(
+                        lm=torch.full_like(s3.lm, cfg.long_mem_size)
+                        - s3.wm * p)
+                    s = _per_stream_select(need, s3, s)
 
-    return _per_stream_select(dup, state, s)
+        return _per_stream_select(dup, state, s)

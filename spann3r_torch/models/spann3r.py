@@ -29,6 +29,7 @@ from torch import nn
 
 from ..config import BF16, Precision, Spann3RConfig, ViTConfig
 from ..ops.layers import gelu, init_conv_, init_modules_, layer_norm, linear
+from ..utils.trace import span
 from . import dust3r as d3
 from .memory import (MemoryState, add_mem, add_mem_check, init_memory,
                      memory_read, memory_read_train)
@@ -142,16 +143,18 @@ def pair_step(model: Spann3R, cfg: Spann3RConfig, feat_fuse: torch.Tensor,
     dm = model.dust3r
     dec1, dec2 = d3.decoder(dm, feat_fuse, pos, feat2, pos, dcfg, prec,
                             remat)
-    feat_k1 = attn_head_apply(model.attn_head_1, feat1, dec1[-1])
-    feat_k2 = attn_head_apply(model.attn_head_2, feat2, dec2[-1])
+    with span("spann3r.memory.value"):
+        feat_k1 = attn_head_apply(model.attn_head_1, feat1, dec1[-1])
+        feat_k2 = attn_head_apply(model.attn_head_2, feat2, dec2[-1])
     res1 = d3.downstream_head(dm, 1, dec1, img_hw, dcfg, prec)
     if compute_res2:
         res2, hooks2 = d3.downstream_head(dm, 2, dec2, img_hw, dcfg, prec), None
     else:
         res2 = None
         hooks2 = tuple([dec2[0]] + [dec2[h] for h in d3.head_hooks(dcfg)])
-    cur_v = encode_value(model, cfg, res1["pts3d"], dec1[-1], pos, prec,
-                         remat)
+    with span("spann3r.memory.value"):
+        cur_v = encode_value(model, cfg, res1["pts3d"], dec1[-1], pos, prec,
+                             remat)
     return PairOutputs(res1, res2, feat_k1, feat_k2, cur_v, hooks2)
 
 
@@ -406,32 +409,33 @@ class InferenceEngine:
         The target-frame head is deferred: the step keeps the decoder's
         hook states, and `target_prediction()` (or want_res2=True) runs the
         head on them when a target prediction is wanted."""
-        feat2, pos = self.encode(img)
-        if self._feat_prev is None:
-            self._feat_prev = feat2
-            return None
-        if self._feat_k2 is None:
-            feat_fuse = self._feat_prev
-        else:
-            feat_fuse, self.mem = memory_read(
-                self.model, self.mem, self._feat_k2,
-                attn_thresh=self.cfg.memory.attn_thresh)
-            self.stats["memory_reads"] += 1
-        out = pair_step(self.model, self.cfg, feat_fuse, self._feat_prev,
-                        feat2, pos, self.img_hw, self.prec,
-                        compute_res2=False)
-        if self.mem is None:
-            self.mem = init_memory(self.batch,
-                                   self.cfg.memory.capacity(self.p_tokens),
-                                   self.cfg.attn_head_out,
-                                   dtype=self.prec.compute_dtype,
-                                   device=self.device)
-        self.mem = add_mem_check(self.mem, out.feat_k1,
-                                 out.cur_v + out.feat_k1, self.cfg.memory)
-        self._feat_prev, self._feat_k2 = feat2, out.feat_k2
-        self._last_hooks = out.dec2_hooks
-        return {"res1": out.res1,
-                "res2": self.target_prediction() if want_res2 else None}
+        with span("spann3r.step"):
+            feat2, pos = self.encode(img)
+            if self._feat_prev is None:
+                self._feat_prev = feat2
+                return None
+            if self._feat_k2 is None:
+                feat_fuse = self._feat_prev
+            else:
+                feat_fuse, self.mem = memory_read(
+                    self.model, self.mem, self._feat_k2,
+                    attn_thresh=self.cfg.memory.attn_thresh)
+                self.stats["memory_reads"] += 1
+            out = pair_step(self.model, self.cfg, feat_fuse, self._feat_prev,
+                            feat2, pos, self.img_hw, self.prec,
+                            compute_res2=False)
+            if self.mem is None:
+                self.mem = init_memory(self.batch,
+                                       self.cfg.memory.capacity(self.p_tokens),
+                                       self.cfg.attn_head_out,
+                                       dtype=self.prec.compute_dtype,
+                                       device=self.device)
+            self.mem = add_mem_check(self.mem, out.feat_k1,
+                                     out.cur_v + out.feat_k1, self.cfg.memory)
+            self._feat_prev, self._feat_k2 = feat2, out.feat_k2
+            self._last_hooks = out.dec2_hooks
+            return {"res1": out.res1,
+                    "res2": self.target_prediction() if want_res2 else None}
 
     @torch.no_grad()
     def target_prediction(self) -> Optional[Dict[str, torch.Tensor]]:
