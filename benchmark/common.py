@@ -105,18 +105,26 @@ def sync(device) -> None:
 
 
 class Reservoir:
-    """Keeps one item drawn uniformly, from the seed, among all offered."""
+    """Keeps k items drawn uniformly, from the seed, among all offered."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, k: int = 1):
         self.rng = random.Random(seed)
+        self.k = k
         self.n = 0
-        self.item = None
+        self.items = []
 
     def offer(self, item_fn):
         """item_fn() makes the item; it is called only when kept."""
         self.n += 1
-        if self.rng.randrange(self.n) == 0:
-            self.item = item_fn()
+        j = self.rng.randrange(self.n)
+        if len(self.items) < self.k:
+            self.items.append(item_fn())
+        elif j < self.k:
+            self.items[j] = item_fn()
+
+    @property
+    def item(self):
+        return self.items[0] if self.items else None
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:

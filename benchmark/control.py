@@ -8,7 +8,9 @@ Entries that must pass the cell's limits (where sound runs land):
   linear layer's and attention product's inputs rounded to bfloat16, the
   configuration's own transformer precision, its heads in fp32 as the
   configuration states: where sound rounding lands with no program code
-  involved.
+  involved. In an online cell the twin is also the yardstick, so its
+  ratios read 1 by construction: there its bank, dedup and heads are
+  judged.
 
 Entries that must fail them:
 
@@ -21,9 +23,15 @@ Entries that must fail them:
   path (`BF16_FAST`);
 - `tenth-frames` (online cells): the program with every tenth pair's
   reference-frame pointmap scaled by 1.5, the fault on a tenth of the
-  frames that the tail ratios exist for;
+  frames that the spike statistic exists for;
 - `dedup-off` (online cells): the program with its write never skipped as
-  a duplicate, which `dedup_skip_gap` exists for.
+  a duplicate, which `dedup_skip_gap` exists for;
+- `prune-truncates` (online cells): the program's prune keeping the
+  bank's first long_mem_size slots, by place alone, in place of the
+  young slots first; and `long-term-zeroed` (online cells): the tokens
+  that spill to long-term memory lost (zeroed) after each write. Faults
+  of the bank that sway every frame after a spill or a prune, which
+  `bank_slot_gap` exists for.
 
 In an online cell each entry runs every distinct video of the traffic, as
 the window of `drivers/stream_step.py` does (reset, `put_frame` and `step`
@@ -39,11 +47,11 @@ Prints one JSON line a seed and entry: {workload, control, seed, checks
 {name: {value, limit}}, notes, fails, must_fail, seconds}, where `fails`
 says whether the entry failed a limit and `must_fail` whether it has to.
 `--per-frame` appends to PATH, for each video of an online entry, the
-frame-by-frame relative errors of the entry and of float8, the dedup
-decisions it took, the fp32 reference's own, and the bank's counters after
-each frame (the program's only), for a look at the tails. The calibration
-of the online limits (PERF.md) is one such command a process, three
-processes sharing the card.
+frame-by-frame relative errors of the entry and of the twin, the dedup
+decisions it took, the fp32 reference's own, the bank's counters after
+each frame (the program's only) and each replayed transition's slot gap,
+for a look at the tails. The calibration of the online limits (PERF.md)
+is one such command a process, several processes sharing the card.
 """
 from __future__ import annotations
 
@@ -66,7 +74,8 @@ from benchmark.drivers import pairs, stream_step  # noqa: E402
 from benchmark.reference import model as rm  # noqa: E402
 
 MUST_PASS = ("program", "bf16-twin")
-MUST_FAIL = ("fp8", "heads-tf32", "heads-bf16", "tenth-frames", "dedup-off")
+MUST_FAIL = ("fp8", "heads-tf32", "heads-bf16", "tenth-frames", "dedup-off",
+             "prune-truncates", "long-term-zeroed")
 CONTROLS = MUST_PASS + MUST_FAIL
 REFERENCES = {"fp8": dict(lowp=True), "bf16-twin": dict(bf16=True)}
 
@@ -74,7 +83,8 @@ REFERENCES = {"fp8": dict(lowp=True), "bf16-twin": dict(bf16=True)}
 def reference_checks(ctx: common.Ctx, control: str) -> tuple:
     """The cell's numbers with the reference in the control's rounding as
     the program, following its own dedup decisions: (numbers, each
-    video's record or None)."""
+    video's record or None). Online, its bank transitions are kept and
+    replayed as a run's are."""
     tr, dev = ctx.traffic, ctx.device
     w = bw.generate(ctx.cfg, ctx.seed, dev)
     exact, low = rm.Ref(w, ctx.cfg), rm.Ref(w, ctx.cfg, **REFERENCES[control])
@@ -88,12 +98,16 @@ def reference_checks(ctx: common.Ctx, control: str) -> tuple:
                 if v == 0:
                     head = common.head_rel_err(exact, low.head, frames[0], frames[1])
                 outs, log = [], []
-                rm.stream(low, frames, lambda t, p, c: outs.append((p, c)), log=log)
-                # the control's own write decisions, which the yardsticks follow
+                bank = stream_step.Transitions(int(ctx.rng(200 + v).integers(1 << 62)))
+                rm.stream(low, frames, lambda t, p, c: outs.append((p, c)), log=log,
+                          on_step=bank.offer)
+                # the control's own write decisions, which the references follow
                 dups = [None] + [torch.tensor([own for _, own in row]) for row in log]
-                records.append(stream_step.yardstick_errors(
-                    ctx, frames, lambda t, s: (outs[t][0][s], outs[t][1][s]), dups))
-                del frames, outs
+                rec = stream_step.yardstick_errors(
+                    ctx, w, frames, lambda t, s: (outs[t][0][s], outs[t][1][s]), dups)
+                rec["slot_gaps"] = stream_step.slot_gaps(ctx, w, frames, bank.items, dups)
+                records.append(rec)
+                del frames, outs, bank
             numbers = stream_step.pooled_numbers(records, ctx.cfg["memory"]["sim_thresh"])
             return dict(numbers, head_rel_err=head), records
         if tr["driver"] == "pairs":
@@ -131,10 +145,12 @@ def program_videos(ctx: common.Ctx) -> tuple:
     engine = InferenceEngine(model, pcfg, hw, prec, batch=1)
     videos = [generate.room_video(ctx.rng(v), n, 1, hw, dev) for v in range(tr["videos"])]
 
-    def run_video(video, frames):
+    def run_video(v, video, frames):
         engine.reset()
         outs, written = [], []
+        bank = stream_step.Transitions(int(ctx.rng(200 + v).integers(1 << 62)))
         for i in range(frames):
+            before = (engine.mem, engine._feat_k2)
             res = engine.step(engine.put_frame(video[i]))
             written.append(None if engine.mem is None else (engine.mem.size, engine.mem.wm))
             if res is not None:
@@ -142,10 +158,11 @@ def program_videos(ctx: common.Ctx) -> tuple:
             if i == frames - 1:
                 t = engine.target_prediction()
                 outs.append((t["pts3d"].cpu(), t["conf"].cpu()))
-        return outs, written
+            bank.offer(i, *before, engine.mem)
+        return outs, written, bank
 
-    run_video(videos[0], tr["warmup_frames"])
-    kept = {v: run_video(video, n) for v, video in enumerate(videos)}
+    run_video(0, videos[0], tr["warmup_frames"])
+    kept = {v: run_video(v, video, n) for v, video in enumerate(videos)}
     first = torch.from_numpy(generate.normalise(videos[0][:2])).to(dev)
     head = common.head_rel_err(rm.Ref(bw.generate(ctx.cfg, ctx.seed, dev), ctx.cfg),
                                common.program_head(model.dust3r, pcfg.dust3r, prec),
@@ -156,7 +173,7 @@ def program_videos(ctx: common.Ctx) -> tuple:
         torch.cuda.empty_cache()
     records = []
     numbers = stream_step.check(ctx, videos, kept, hw, records)
-    for rec, (_, written) in zip(records, (kept[v] for v in sorted(kept))):
+    for rec, (_, written, _) in zip(records, (kept[v] for v in sorted(kept))):
         rec["bank"] = [None if w is None else (int(w[0][0]), int(w[1][0])) for w in written]
     return dict(numbers, head_rel_err=head), records
 
@@ -209,8 +226,39 @@ def dedup_off():
         k.shape[0], dtype=torch.bool, device=k.device))
 
 
+def prune_truncates():
+    """The prune keeping the bank's first long_mem_size slots, by place
+    alone."""
+    import spann3r_torch.models.memory as mem
+
+    def truncated(state, cfg):
+        keep = cfg.long_mem_size
+        cut = lambda a: torch.cat([a[:, :keep], torch.zeros_like(a[:, keep:])], 1)
+        return state._replace(k=cut(state.k), v=cut(state.v), count=cut(state.count),
+                              attn=cut(state.attn), size=torch.full_like(state.size, keep))
+
+    return patched(mem, "memory_prune", truncated)
+
+
+def long_term_zeroed():
+    """The tokens that spill to long-term memory lost: after each write,
+    the bank's long-term slots (its first `lm`) hold zeros."""
+    import spann3r_torch.models.spann3r as sp
+    orig = sp.add_mem_check
+
+    def lost(state, k, v, cfg):
+        s = orig(state, k, v, cfg)
+        lt = (torch.arange(s.k.shape[1], device=s.k.device)[None] < s.lm[:, None])[..., None]
+        return s._replace(k=torch.where(lt, torch.zeros_like(s.k), s.k),
+                          v=torch.where(lt, torch.zeros_like(s.v), s.v))
+
+    return patched(sp, "add_mem_check", lost)
+
+
 FAULTS = {"heads-tf32": heads_in_tf32, "tenth-frames": tenth_frames,
-          "dedup-off": dedup_off}
+          "dedup-off": dedup_off, "prune-truncates": prune_truncates,
+          "long-term-zeroed": long_term_zeroed}
+ONLINE_FAULTS = ("tenth-frames", "dedup-off", "prune-truncates", "long-term-zeroed")
 
 
 def program_checks(ctx: common.Ctx, cell: str, control: str, seconds: float) -> tuple:
@@ -222,7 +270,7 @@ def program_checks(ctx: common.Ctx, cell: str, control: str, seconds: float) -> 
     with fault:
         if ctx.traffic["driver"] == "stream_step":
             return program_videos(ctx)
-        if control in ("tenth-frames", "dedup-off"):
+        if control in ONLINE_FAULTS:
             raise ValueError(f"{control} is a fault of the online cells")
         res = run.execute(cell, ctx.seed, seconds, False, str(ctx.device), cfg=ctx.cfg,
                           t_start=time.perf_counter())
@@ -234,19 +282,22 @@ def _rounded(x):
         return float(f"{x:.6g}")
     if isinstance(x, (list, tuple)):
         return [_rounded(y) for y in x]
+    if isinstance(x, dict):
+        return {k: _rounded(v) for k, v in x.items()}
     return x
 
 
 def per_frame_line(head: dict, rec: dict) -> dict:
     """One video's frame-by-frame record (stream 0)."""
-    prog, fp8 = rec["prog"][0], rec["fp8"][0]
-    return dict(head, **_rounded({
-        "pts3d": [e[0] for e in prog], "conf": [e[1] for e in prog],
-        "fp8_pts3d": [e[0] for e in fp8], "fp8_conf": [e[1] for e in fp8],
-        "skip": [None if d is None else bool(d[0]) for d in rec["dups"]],
-        "bank": rec.get("bank"),
-        "ref_sim": [row[0][0] for row in rec["log"]],
-        "ref_skip": [row[0][1] for row in rec["log"]]}))
+    errs = {}
+    for side, key in (("prog", ""), ("twin", "twin_")):
+        errs[key + "pts3d"] = [e[0] for e in rec[side][0]]
+        errs[key + "conf"] = [e[1] for e in rec[side][0]]
+    return dict(head, **_rounded(dict(
+        errs, skip=[None if d is None else bool(d[0]) for d in rec["dups"]],
+        slot_gaps=rec["slot_gaps"],
+        bank=rec.get("bank"), ref_sim=[row[0][0] for row in rec["log"]],
+        ref_skip=[row[0][1] for row in rec["log"]])))
 
 
 def main(argv=None) -> int:

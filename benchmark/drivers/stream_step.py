@@ -13,6 +13,7 @@ the seed, cycled), warmup_frames, trace_start, trace_frames.
 from __future__ import annotations
 
 import gc
+import statistics
 import time
 
 import torch
@@ -80,12 +81,15 @@ def run(ctx: common.Ctx) -> dict:
         engine.reset()
         video = videos[v % len(videos)]
         outs, written = [], []
+        bank = Transitions(int(ctx.rng(200 + v % len(videos)).integers(1 << 62)))
         for i in range(n_frames):
             tracer.begin(unit)
             if tracer.active:
                 # the bank's valid slots that this frame's read sees
                 reads0 = engine.stats["memory_reads"]
                 size0 = 0 if engine.mem is None else int(engine.mem.size[0])
+            # the program's state that this frame's step starts from
+            before = (engine.mem, engine._feat_k2)
             t0 = time.perf_counter()
             got = one_frame(i, video[i], i == n_frames - 1)
             t1 = time.perf_counter()
@@ -102,7 +106,8 @@ def run(ctx: common.Ctx) -> dict:
                 unit += 1
                 if win.over:
                     t_close = time.perf_counter()
-        kept[v % len(videos)] = (outs, written)
+            bank.offer(i, *before, engine.mem)
+        kept[v % len(videos)] = (outs, written, bank)
         v += 1
     window_s = t_close - t_open
     peak = torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else 0
@@ -137,20 +142,25 @@ def run(ctx: common.Ctx) -> dict:
 
 def check(ctx, videos, kept, hw, records=None) -> dict:
     """Every output of the last run of each distinct video that the window
-    ran (`kept`: {video: (outputs, written)}) against the reference's run of
-    the same frames (fp32), in units of the error that float8 rounding
-    makes on the same frames, the references taking the program's dedup
-    decisions, which are judged on their own (PERF.md says why); the
-    numbers are taken over the frames of all those videos. `records`, a
-    list, receives each video's record (yardstick_errors)."""
+    ran (`kept`: {video: (outputs, written, Transitions)}) against the
+    reference's run of the same frames (fp32), in units of the error that
+    the bf16 twin of the reference makes on the same frames, both taking
+    the program's dedup decisions, which are judged on their own; and the
+    bank's transitions that the run kept, each replayed by the reference
+    from the program's bank before it (PERF.md says why); the numbers are
+    taken over the frames of all those videos. `records`, a list, receives
+    each video's record (yardstick_errors, with `slot_gaps`)."""
     recs = []
+    w = bw.generate(ctx.cfg, ctx.seed, ctx.device)
     for vi in sorted(kept):
-        outs, written = kept[vi]
+        outs, written, bank = kept[vi]
         frames = torch.from_numpy(generate.normalise(videos[vi])).to(ctx.device)
         got = [(p.to(ctx.device), c.to(ctx.device)) for p, c in outs]
-        recs.append(yardstick_errors(ctx, frames,
-                                     lambda t, s: (got[t][0][s], got[t][1][s]),
-                                     write_decisions(written)))
+        dups = write_decisions(written)
+        rec = yardstick_errors(ctx, w, frames, lambda t, s: (got[t][0][s], got[t][1][s]),
+                               dups)
+        rec["slot_gaps"] = slot_gaps(ctx, w, frames, bank.items, dups)
+        recs.append(rec)
         del frames, got
     if records is not None:
         records += recs
@@ -173,17 +183,17 @@ def write_decisions(written):
     return dups
 
 
-def yardstick_errors(ctx, frames, program, dups) -> dict:
-    """Runs the fp32 reference and the float8 one over frames (T, B, H, W,
-    3), both taking the decisions `dups` (write_decisions) in place of
-    their own dedup decisions, so that a decision flipped by rounding does
-    not part their banks from the program's; program(t, s) gives the
-    program's (pointmap, confidence) of frame t of stream s. Returns the
-    video's record: per stream, each frame's relative L2 error of the
-    program and of float8 against fp32 (`prog`, `fp8`: lists of
-    (pointmap, confidence)), the fp32 reference's own dedup check (`log`:
-    per write, each stream's (similarity, skip)) and `dups`."""
-    w = bw.generate(ctx.cfg, ctx.seed, ctx.device)
+def yardstick_errors(ctx, w, frames, program, dups) -> dict:
+    """Runs the fp32 reference and its bf16 twin over frames (T, B, H, W,
+    3) on the weights `w`, both taking the decisions `dups`
+    (write_decisions) in place of their own dedup decisions, so that a
+    decision flipped by rounding does not part their banks from the
+    program's; program(t, s) gives the program's (pointmap, confidence) of
+    frame t of stream s. Returns the video's record: per stream, each
+    frame's relative L2 error of the program (`prog`) and of the twin
+    (`twin`) against fp32 (lists of (pointmap, confidence)), the fp32
+    reference's own dedup check (`log`: per write, each stream's
+    (similarity, skip)) and `dups`."""
     exact, log = [], []
     with torch.no_grad():
         rm.stream(rm.Ref(w, ctx.cfg), frames, lambda t, p, c: exact.append((p, c)),
@@ -191,53 +201,174 @@ def yardstick_errors(ctx, frames, program, dups) -> dict:
     if len(exact) != frames.shape[0]:
         raise RuntimeError(f"the reference made {len(exact)} frames of {frames.shape[0]}")
     b = frames.shape[1]
-    errs = {"prog": [[] for _ in range(b)], "fp8": [[] for _ in range(b)]}
+    errs = {"prog": [[] for _ in range(b)], "twin": [[] for _ in range(b)]}
 
-    def on_frame(t, p, c):
+    def add(side, t, got):
         for s in range(b):
-            gp, gc = program(t, s)
-            errs["prog"][s].append((common.rel_err(gp, exact[t][0][s]),
-                                    common.rel_err(gc, exact[t][1][s])))
-            errs["fp8"][s].append((common.rel_err(p[s], exact[t][0][s]),
-                                   common.rel_err(c[s], exact[t][1][s])))
+            p, c = got(s)
+            errs[side][s].append((common.rel_err(p, exact[t][0][s]),
+                                  common.rel_err(c, exact[t][1][s])))
 
+    for t in range(len(exact)):
+        add("prog", t, lambda s: program(t, s))
     with torch.no_grad():
-        rm.stream(rm.Ref(w, ctx.cfg, lowp=True), frames, on_frame, dups)
+        rm.stream(rm.Ref(w, ctx.cfg, bf16=True), frames,
+                  lambda t, p, c: add("twin", t, lambda s: (p[s], c[s])), dups)
     return dict(errs, log=log, dups=dups)
+
+
+# the frames, beside every prune, whose bank transition a run keeps
+SAMPLED_WRITES = 3
+
+
+class Transitions:
+    """The frames of one run of a video whose bank transition the check
+    replays (`slot_gaps`): every frame on which the bank was pruned, and
+    SAMPLED_WRITES other frames that wrote to it, drawn from the seed;
+    each kept as (t, bank before, the read's keys before, bank after).
+    offer() is called after each frame's step with the state it started
+    from and the bank after it, and reads the bank's size (the frame's
+    outputs are on the host by then, so the device has finished)."""
+
+    def __init__(self, seed: int):
+        self.pruned = []
+        self.writes = common.Reservoir(seed, SAMPLED_WRITES)
+        self.size = None
+
+    def offer(self, t, before, k2, after):
+        size = None if after is None else tuple(after.size.tolist())
+        # a step with a read (the second pair on) and a bank to start from
+        if before is not None and k2 is not None and size != self.size:
+            item = (t, before, k2, after)
+            if any(a < b for a, b in zip(size, self.size)):
+                self.pruned.append(item)
+            else:
+                self.writes.offer(lambda: item)
+        self.size = size
+
+    @property
+    def items(self) -> list:
+        return sorted(self.pruned + self.writes.items, key=lambda x: x[0])
+
+
+def as_bank(state) -> rm.Bank:
+    """The program's bank (or a reference's) as the reference's, in fp32."""
+    return rm.Bank(k=state.k.float(), v=state.v.float(), count=state.count.float(),
+                   attn=state.attn.float(), size=state.size.long(),
+                   wm=state.wm.long(), lm=state.lm.long())
+
+
+def slot_gaps(ctx, w, frames, transitions, dups) -> list:
+    """Each kept transition (t, before, k2, after) replayed by the fp32
+    reference: from the bank `before` and the read's keys k2, the step of
+    frame t (read, pair, write with the program's decision dups[t]); then
+    [(t, slot_gap)] of the bank `after` against the reference's."""
+    ref = rm.Ref(w, ctx.cfg)
+    hw = tuple(frames.shape[2:4])
+    out = []
+    with torch.no_grad():
+        for t, before, k2, after in transitions:
+            prev, _ = ref.encode(frames[t - 1])
+            feat, pos = ref.encode(frames[t])
+            _, want, _, _ = rm.step(ref, as_bank(before), prev, feat, pos, k2.float(), hw,
+                                    dups[t])
+            out.append((t, slot_gap(before, after, want)))
+    return out
+
+
+def _fingerprints(x: torch.Tensor) -> list:
+    """Per row of x (N, D), an integer of its bits: rows alike to the bit
+    read alike, others apart but by chance (~2**-20 a pair)."""
+    bits = x.contiguous().view({2: torch.int16, 4: torch.int32}[x.element_size()]).long()
+    g = torch.Generator(device="cpu").manual_seed(20)
+    mult = torch.randint(1, 1 << 20, (x.shape[-1],), generator=g).to(x.device)
+    return (bits * mult).sum(-1).tolist()
+
+
+def slot_gap(before, got, want) -> float:
+    """The share of the reference's valid slots (`want`, a bank after a
+    step from `before`) on which the bank `got` differs: where, slot by
+    slot, one holds a token of the bank before (key and value to the bit)
+    and the other another one, or the same at another age, or a new token;
+    plus the difference of their valid slots. 1 where the counts of
+    working frames or long-term tokens differ. The worst stream's."""
+    worst = 0.0
+    for s in range(before.k.shape[0]):
+        if (int(got.wm[s]), int(got.lm[s])) != (int(want.wm[s]), int(want.lm[s])):
+            return 1.0
+
+        def slots(bank):
+            n = int(bank.size[s])
+            k, v = (x[s, :n].to(before.k.dtype) for x in (bank.k, bank.v))
+            return list(zip(_fingerprints(k), _fingerprints(v), bank.count[s, :n].tolist()))
+
+        old = {(a, b) for a, b, _ in slots(before)}
+        mark = lambda xs: [x if x[:2] in old else "new" for x in xs]
+        g, r = mark(slots(got)), mark(slots(want))
+        differ = sum(a != b for a, b in zip(g, r)) + abs(len(g) - len(r))
+        worst = max(worst, differ / max(len(r), 1))
+    return worst
+
+
+def upper_median(values) -> float:
+    return sorted(values)[len(values) // 2]
+
+
+# the frames on each side of a frame that its spike is measured against
+SPIKE_REACH = 3
+
+
+def spikes(ratios) -> list:
+    """Each frame's ratio over the median ratio of the SPIKE_REACH frames
+    before it and after it in its video."""
+    out = []
+    for t, r in enumerate(ratios):
+        near = ratios[max(0, t - SPIKE_REACH):t] + ratios[t + 1:t + 1 + SPIKE_REACH]
+        out.append(r / max(statistics.median(near), 1e-30))
+    return out
 
 
 def pooled_numbers(records, thresh: float) -> dict:
     """The numbers compared, each over the frames of all the records
     (videos), the worst stream's:
 
-    - `*_err_over_fp8`: the median frame's relative L2 error of the
-      program over the median frame's error of float8, both against fp32,
-      so that the stream's own sensitivity to rounding, which varies with
-      the weights and the inputs, divides out;
-    - `*_p95_err_over_fp8`: the same at the 95th percentile of the frames,
-      which a fault on a twentieth of the frames or more moves (a 90th
-      percentile is blind to one on a tenth: PERF.md);
+    - `pts3d_err_over_twin`: the median over the frames of each frame's
+      ratio of the program's pointmap error to the twin's, both against
+      fp32, so that the frame's own sensitivity to rounding, which varies
+      with the weights, the inputs and the bank's state, divides out;
+    - `pts3d_p95_spike_over_twin`: the 95th percentile over the frames of
+      each frame's spike (`spikes`) in that ratio. Rounding parts the two
+      runs in stretches of frames (the memory read's threshold flips,
+      PERF.md), so a sound ratio moves little from one frame to the next,
+      while a fault on scattered frames (a tenth of them, as control.py's
+      `tenth-frames`) stands out against its neighbours;
+    - `bank_slot_gap`: the worst `slot_gap` of the transitions replayed,
+      which sees a fault of the bank's write, spill and prune on the frame
+      where it acts, however many frames it then sways;
     - the program's dedup decisions judged on their own, against the fp32
       reference's own check of the same frames: `dedup_skip_gap` is the
       writes the program skipped less those the reference's check skipped,
       in absolute value, over the decisions; rounding flips decisions both
       ways, a wrong check one way. `dedup_flip_share` (the decisions on
       which the two differ) and `dedup_flip_margin` (the farthest from the
-      threshold that they differ) are kept for the record."""
+      threshold that they differ) are kept for the record, with each
+      side's median frame errors."""
     b = len(records[0]["prog"])
     out = {}
     for i, name in ((0, "pts3d"), (1, "conf")):
-        med, p95, mp, mf = [], [], [], []
-        for s in range(b):
-            ep = [e[i] for r in records for e in r["prog"][s]]
-            ef = [e[i] for r in records for e in r["fp8"][s]]
-            # the upper median of each side's frames
-            mp.append(sorted(ep)[len(ep) // 2])
-            mf.append(sorted(ef)[len(ef) // 2])
-            med.append(mp[-1] / max(mf[-1], 1e-30))
-            p95.append(common.percentile(ep, 95) / max(common.percentile(ef, 95), 1e-30))
-        out.update({f"{name}_err_over_fp8": max(med), f"{name}_p95_err_over_fp8": max(p95),
-                    f"{name}_rel_err_median": max(mp), f"fp8_{name}_rel_err_median": min(mf)})
+        ep = [[e[i] for r in records for e in r["prog"][s]] for s in range(b)]
+        ey = [[e[i] for r in records for e in r["twin"][s]] for s in range(b)]
+        out[f"{name}_rel_err_median"] = max(upper_median(e) for e in ep)
+        out[f"twin_{name}_rel_err_median"] = min(upper_median(q) for q in ey)
+    # per stream, each video's frame by frame ratios of the pointmap errors
+    ratios = [[[a[0] / max(c[0], 1e-30) for a, c in zip(r["prog"][s], r["twin"][s])]
+               for r in records] for s in range(b)]
+    out["pts3d_err_over_twin"] = max(upper_median([x for rs in per for x in rs])
+                                     for per in ratios)
+    out["pts3d_p95_spike_over_twin"] = max(
+        common.percentile([x for rs in per for x in spikes(rs)], 95) for per in ratios)
+    out["bank_slot_gap"] = max([g for r in records for _, g in r["slot_gaps"]], default=0.0)
+    out["bank_transitions"] = sum(len(r["slot_gaps"]) for r in records)
     gap, share, margin, skips = [], [], [0.0], [0, 0]
     for s in range(b):
         # log[k] is the write of frame k + 1 (frame 0 writes nothing); with

@@ -6,8 +6,12 @@ the published architecture (DUSt3R's `AsymmetricCroCo3DStereo` with the
 512-DPT head, Spann3R's `spann3r/model.py`) and the
 memory semantics the system under test states: cosine dedup against the
 working memory, working -> long-term spill, usage-based pruning, the
-thresholded read. No kernel, no cache, no batching trick: every product is
-a plain fp32 `torch.matmul` or convolution (TF32 off, set by the caller).
+thresholded read. No kernel and no batching trick: every product is a
+plain fp32 `torch.matmul` or convolution (TF32 off, set by the caller).
+What depends on the weights or the image size alone is made once per
+`Ref` and kept (`cache=True`): the RoPE tables of each grid of positions
+and, where the products' operands are rounded, the rounded weights. The
+outputs are the same bits with the cache off.
 
 `lowp=True` rounds the inputs and weights of every linear layer and of the
 attention products to float8 e4m3 (one scale per tensor): the precision
@@ -49,12 +53,20 @@ class Ref:
     its sizes (the configuration file's keys)."""
 
     def __init__(self, weights: Dict[str, torch.Tensor], cfg: dict,
-                 lowp: bool = False, bf16: bool = False):
+                 lowp: bool = False, bf16: bool = False, cache: bool = True):
         self.w = weights
         self.cfg = cfg
         self.round = fp8 if lowp else bf16_round if bf16 else None
         # the backbone's keys sit under "dust3r." inside Spann3R
         self.p = "dust3r." if cfg["model"] == "spann3r" else ""
+        self.cache = cache
+        # each linear layer's weight, transposed and rounded, as `linear`
+        # multiplies it (the 2-D weights are the linear layers')
+        self.wt = ({n: self.round(t.t()) for n, t in weights.items() if t.dim() == 2}
+                   if cache and self.round is not None else {})
+        # positions by (batch, grid, device), and the RoPE tables of each
+        self.pos: Dict[tuple, torch.Tensor] = {}
+        self.tables: Dict[tuple, list] = {}
 
     # -- primitives ----------------------------------------------------------
 
@@ -64,7 +76,9 @@ class Ref:
         return torch.matmul(a, b)
 
     def linear(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        y = self.mm(x, self.w[name + ".weight"].t())
+        wt = self.wt.get(name + ".weight")
+        y = (self.mm(x, self.w[name + ".weight"].t()) if wt is None
+             else torch.matmul(self.round(x), wt))
         b = self.w.get(name + ".bias")
         return y if b is None else y + b
 
@@ -84,17 +98,32 @@ class Ref:
     # -- attention -------------------------------------------------------------
 
     @staticmethod
-    def rope(t: torch.Tensor, pos: torch.Tensor, base: float) -> torch.Tensor:
+    def rope_tables(pos: torch.Tensor, q: int, base: float) -> list:
+        """Per axis (y, then x), cos and sin of each position's angles,
+        (B, 1, N, q) for positions (B, N, 2)."""
+        inv = 1.0 / (base ** (torch.arange(q, dtype=torch.float32,
+                                           device=pos.device) / q))
+        out = []
+        for axis in (0, 1):
+            ang = pos[..., axis].float()[:, None, :, None] * inv
+            out.append((torch.cos(ang), torch.sin(ang)))
+        return out
+
+    def rope(self, t: torch.Tensor, pos: torch.Tensor, base: float) -> torch.Tensor:
         """RoPE2D on (B, H, N, D): the first half of D rotates with the
-        y position, the second with x, each half as rotate-half pairs."""
+        y position, the second with x, each half as rotate-half pairs.
+        The tables of positions that `patch_embed` made are kept."""
         d = t.shape[-1]
         q = d // 4
-        inv = 1.0 / (base ** (torch.arange(q, dtype=torch.float32,
-                                           device=t.device) / q))
+        key = (id(pos), q, base)
+        tables = self.tables.get(key)
+        if tables is None:
+            tables = self.rope_tables(pos, q, base)
+            # the positions this reference holds keep their id
+            if any(pos is p for p in self.pos.values()):
+                self.tables[key] = tables
         out = []
-        for axis, part in ((0, t[..., :d // 2]), (1, t[..., d // 2:])):
-            ang = pos[..., axis].float()[:, None, :, None] * inv
-            cos, sin = torch.cos(ang), torch.sin(ang)
+        for (cos, sin), part in zip(tables, (t[..., :d // 2], t[..., d // 2:])):
             u, v = part[..., :q], part[..., q:]
             out += [u * cos - v * sin, v * cos + u * sin]
         return torch.cat(out, dim=-1)
@@ -147,10 +176,15 @@ class Ref:
         ps = self.cfg["patch_size"]
         x = self.conv(name, img.permute(0, 3, 1, 2), stride=ps)
         b, _, hp, wp = x.shape
-        ys, xs = torch.meshgrid(torch.arange(hp, device=img.device),
-                                torch.arange(wp, device=img.device),
-                                indexing="ij")
-        pos = torch.stack([ys, xs], -1).reshape(1, -1, 2).expand(b, -1, -1)
+        key = (b, hp, wp, img.device)
+        pos = self.pos.get(key)
+        if pos is None:
+            ys, xs = torch.meshgrid(torch.arange(hp, device=img.device),
+                                    torch.arange(wp, device=img.device),
+                                    indexing="ij")
+            pos = torch.stack([ys, xs], -1).reshape(1, -1, 2).expand(b, -1, -1)
+            if self.cache:
+                self.pos[key] = pos
         return x.flatten(2).transpose(1, 2), pos
 
     def encode(self, img):
@@ -409,13 +443,29 @@ def _select(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 # streaming reconstruction
 # ---------------------------------------------------------------------------
 
-def stream(ref: Ref, frames, on_frame, dups=None, log=None) -> None:
+def step(ref: Ref, bank: Bank, prev, feat, pos, k2, hw, dup=None, log=None):
+    """One frame t >= 1 of `stream`: the read of the bank with the previous
+    pair's target keys k2 (none on the first pair, which fuses prev, the
+    features of frame t - 1, itself), the pair (t - 1, t) and the write
+    (`write`, with `dup` and `log`). Returns (res1, bank, k2, s2): frame
+    t - 1's outputs, the bank after the step, the pair's target keys and
+    its decoder's target states."""
+    mem = ref.cfg["memory"]
+    fuse = prev
+    if k2 is not None:
+        fuse, bank = read(ref, bank, k2, mem["attn_thresh"])
+    res1, _, k1, k2, v, s2 = ref.spann3r_pair(fuse, prev, feat, pos, hw, False)
+    return res1, write(bank, k1, v + k1, mem, dup, log), k2, s2
+
+
+def stream(ref: Ref, frames, on_frame, dups=None, log=None, on_step=None) -> None:
     """Spann3R's online reconstruction of B streams, a frame at a time:
     frames (T, B, H, W, 3) normalised. on_frame(t, pts3d, conf) receives
     each frame's pointmap in frame 0's coordinates: frame t - 1 as the
     reference view of pair (t - 1, t), and the last frame as the target
     view of the last pair. dups[t] (B,), when given, decides whether frame
-    t's write is skipped as a duplicate (`write`)."""
+    t's write is skipped as a duplicate (`write`). on_step(t, bank before,
+    k2 before, bank after), when given, receives each step's state."""
     cfg = ref.cfg
     mem = cfg["memory"]
     t_total, b, h, w, _ = frames.shape
@@ -426,16 +476,13 @@ def stream(ref: Ref, frames, on_frame, dups=None, log=None) -> None:
     prev = k2 = s2 = None
     for t in range(t_total):
         feat, pos = ref.encode(frames[t])
-        if prev is None:
-            prev = feat
-            continue
-        fuse = prev if k2 is None else None
-        if fuse is None:
-            fuse, bank = read(ref, bank, k2, mem["attn_thresh"])
-        res1, _, k1, k2, v, s2 = ref.spann3r_pair(fuse, prev, feat, pos,
-                                                  (h, w), False)
-        bank = write(bank, k1, v + k1, mem, None if dups is None else dups[t], log)
-        on_frame(t - 1, res1["pts3d"], res1["conf"])
+        if prev is not None:
+            before, k2_before = bank, k2
+            res1, bank, k2, s2 = step(ref, bank, prev, feat, pos, k2, (h, w),
+                                      None if dups is None else dups[t], log)
+            if on_step is not None:
+                on_step(t, before, k2_before, bank)
+            on_frame(t - 1, res1["pts3d"], res1["conf"])
         prev = feat
     if s2 is not None:
         last = ref.head(2, s2, (h, w))

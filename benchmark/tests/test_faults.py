@@ -86,6 +86,26 @@ def dedup_threshold_moved(mp):
         state, k, p, wm, thresh + 0.15))
 
 
+def prune_truncates(mp):
+    """The prune keeps the bank's first long_mem_size slots, by place
+    alone, as control.py's `prune-truncates` plants it."""
+    import spann3r_torch.models.memory as mem
+    from benchmark import control
+    with control.prune_truncates():
+        fault = mem.memory_prune
+    mp.setattr(mem, "memory_prune", fault)
+
+
+def long_term_zeroed(mp):
+    """The tokens that spill to long-term memory are zeroed, as control.py's
+    `long-term-zeroed` plants it."""
+    import spann3r_torch.models.spann3r as sp
+    from benchmark import control
+    with control.long_term_zeroed():
+        fault = sp.add_mem_check
+    mp.setattr(sp, "add_mem_check", fault)
+
+
 def answer_altered_pairs(mp):
     import spann3r_torch.models.inference as inf
     mp.setattr(inf, "decode_pairs", _alter_every(2, inf.decode_pairs))
@@ -109,7 +129,8 @@ def half_batch_pairs(mp):
 FAULTS = {
     "spann3r.online-512": [state_unchanged_memory, answer_altered_stream,
                            answer_altered_some_frames, answer_altered_tenth_frames,
-                           dedup_off, dedup_threshold_moved],
+                           dedup_off, dedup_threshold_moved, prune_truncates,
+                           long_term_zeroed],
     "dust3r.pairs-512": [answer_altered_pairs, half_batch_pairs],
 }
 SECONDS = {"spann3r.online-512": 3.0, "dust3r.pairs-512": 0.5}
@@ -117,6 +138,10 @@ SECONDS = {"spann3r.online-512": 3.0, "dust3r.pairs-512": 0.5}
 # (0.90-1.0 at full width): a lower threshold makes it skip some writes,
 # as the full model does
 SIM_THRESH = {"spann3r.online-512": 0.65}
+# the faults of the bank that act on a prune: with the configuration's
+# own threshold every frame of the narrow model writes, and each video's
+# bank prunes (on its twelfth write, with slots past the protected age)
+EVERY_WRITE = {prune_truncates, long_term_zeroed}
 
 
 @pytest.mark.parametrize("cell", sorted(FAULTS))
@@ -126,10 +151,19 @@ def test_sound_run_is_correct(cell):
     assert res["correct"], res["checks"]
 
 
+def test_sound_run_with_every_write_is_correct():
+    res = tiny.execute("spann3r.online-512", seconds=SECONDS["spann3r.online-512"],
+                       precision="float32")
+    assert res["correct"] and res["notes"]["dedup_skipped_by_program"] == 0, res
+    assert res["checks"]["bank_slot_gap"]["value"] == 0.0
+
+
 @pytest.mark.parametrize("cell,fault", [(c, f) for c, fs in FAULTS.items() for f in fs],
                          ids=lambda x: x if isinstance(x, str) else x.__name__)
 def test_fault_is_not_correct(cell, fault, monkeypatch):
     fault(monkeypatch)
     res = tiny.execute(cell, seconds=SECONDS[cell], precision="float32",
-                       sim_thresh=SIM_THRESH.get(cell))
+                       sim_thresh=None if fault in EVERY_WRITE else SIM_THRESH.get(cell))
     assert not res["correct"], res["checks"]
+    if fault in EVERY_WRITE:
+        assert res["checks"]["bank_slot_gap"]["value"] > 0.1, res["checks"]

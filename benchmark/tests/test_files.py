@@ -47,7 +47,8 @@ def test_cells_name_known_files(spec):
         assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
         _, cfg, traffic = run.cell_parts(spec, w["name"])
         importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
-        assert traffic["limits"] and all(v > 0 for v in traffic["limits"].values())
+        # an exact comparison has the limit 0
+        assert traffic["limits"] and all(v >= 0 for v in traffic["limits"].values())
     assert {c["config"] for c in spec["workloads"]} == configs
 
 

@@ -6,6 +6,7 @@ weights load into the program's model under its own keys."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from benchmark import common, generate, weights as bw
@@ -73,3 +74,28 @@ def test_pairs_match_program():
             assert common.rel_err(got, r2["pts3d"][0]) < TOL
             assert common.rel_err(torch.from_numpy(out["pred2"]["conf"][row]),
                                   r2["conf"][0]) < TOL
+
+
+@pytest.mark.parametrize("rounding", ["fp32", "bf16", "lowp"])
+def test_cache_gives_the_same_bits(rounding):
+    """The kept RoPE tables and rounded weights change no bit of the
+    stream's outputs or of its dedup check."""
+    ctx = _ctx("spann3r.online-512")
+    w = bw.generate(ctx.cfg, ctx.seed, "cpu")
+    frames = torch.from_numpy(generate.normalise(generate.video(ctx.rng(0), 14, 1, (32, 48))))
+    kw = {} if rounding == "fp32" else {rounding: True}
+    runs = []
+    for cache in (True, False):
+        ref = rm.Ref(w, ctx.cfg, cache=cache, **kw)
+        outs, log = [], []
+        with torch.no_grad():
+            rm.stream(ref, frames, lambda t, p, c: outs.append((p, c)), log=log)
+        runs.append((outs, log))
+        if cache:
+            assert ref.tables and (ref.wt or rounding == "fp32")
+        else:
+            assert not ref.tables and not ref.wt
+    (a, log_a), (b, log_b) = runs
+    assert len(a) == len(b) == 14 and log_a == log_b
+    for (pa, ca), (pb, cb) in zip(a, b):
+        assert torch.equal(pa, pb) and torch.equal(ca, cb)
