@@ -13,6 +13,7 @@ from torch import nn
 
 from ..config import BF16, DUSt3RConfig, Precision
 from ..ops.layers import init_conv_, init_modules_, layer_norm, linear
+from ..utils.graphs import LayerGraphs, graphed
 from ..utils.trace import span
 from .heads import head_apply, make_head
 from .vit import (Block, DecoderBlock, PatchEmbed, dual_decoder_apply,
@@ -50,9 +51,17 @@ def encode_image(m: DUSt3R, img: torch.Tensor, cfg: DUSt3RConfig,
     """img (B, H, W, 3) normalised NHWC -> tokens (B, N, D), pos (B, N, 2).
     remat: recompute each block in the backward (training)."""
     with span("spann3r.encode"):
-        x, pos = patch_embed_apply(m.patch_embed, img.to(prec.compute_dtype))
-        x = encoder_apply(m.enc_blocks, x, pos, cfg.enc, remat)
-        return layer_norm(m.enc_norm, x, cfg.enc.ln_eps), pos
+        return encode_tokens(m, img, cfg, prec, remat)
+
+
+def encode_tokens(m: DUSt3R, img: torch.Tensor, cfg: DUSt3RConfig,
+                  prec: Precision = BF16, remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`encode_image` outside its span, for a caller that opens the span
+    itself around more work."""
+    x, pos = patch_embed_apply(m.patch_embed, img.to(prec.compute_dtype))
+    x = encoder_apply(m.enc_blocks, x, pos, cfg.enc, remat)
+    return layer_norm(m.enc_norm, x, cfg.enc.ln_eps), pos
 
 
 def head_hooks(cfg: DUSt3RConfig) -> Tuple[int, ...]:
@@ -75,37 +84,55 @@ def states_from_hooks(cfg: DUSt3RConfig, packed) -> list:
 
 def decoder(m: DUSt3R, f1: torch.Tensor, pos1: torch.Tensor,
             f2: torch.Tensor, pos2: torch.Tensor, cfg: DUSt3RConfig,
-            prec: Precision = BF16, remat: bool = False) -> Tuple[List, List]:
+            prec: Precision = BF16, remat: bool = False,
+            graphs: Optional[LayerGraphs] = None) -> Tuple[List, List]:
     """Dual cross-attending decoder. Returns two lists of 1 + depth states:
     the encoder features, then block outputs at the hook indices (None
     elsewhere), the last one normed. remat: recompute each pair of blocks
-    in the backward (training)."""
+    in the backward (training). graphs: replay the decoders as a CUDA
+    graph from these (`utils.graphs`)."""
     with span("spann3r.decode"):
-        f1 = f1.to(prec.compute_dtype)
-        f2 = f2.to(prec.compute_dtype)
-        p1 = linear(m.decoder_embed, f1)
-        p2 = linear(m.decoder_embed, f2)
-        ys = dual_decoder_apply(m.dec_blocks, m.dec_blocks2, p1, p2, pos1,
-                                pos2, cfg.dec, head_hooks(cfg), remat)
-        out1: List = [f1] + [None] * cfg.dec.depth
-        out2: List = [f2] + [None] * cfg.dec.depth
-        for h, (y1, y2) in ys.items():
-            out1[h], out2[h] = y1, y2
-        out1[-1] = layer_norm(m.dec_norm, out1[-1], cfg.dec.ln_eps)
-        out2[-1] = layer_norm(m.dec_norm, out2[-1], cfg.dec.ln_eps)
-        return out1, out2
+        return graphed(graphs, "decode", _decoders, m, f1, pos1, f2, pos2,
+                       cfg, prec, remat)
+
+
+def _decoders(m: DUSt3R, f1, pos1, f2, pos2, cfg: DUSt3RConfig,
+              prec: Precision, remat: bool) -> Tuple[List, List]:
+    f1 = f1.to(prec.compute_dtype)
+    f2 = f2.to(prec.compute_dtype)
+    p1 = linear(m.decoder_embed, f1)
+    p2 = linear(m.decoder_embed, f2)
+    ys = dual_decoder_apply(m.dec_blocks, m.dec_blocks2, p1, p2, pos1,
+                            pos2, cfg.dec, head_hooks(cfg), remat)
+    out1: List = [f1] + [None] * cfg.dec.depth
+    out2: List = [f2] + [None] * cfg.dec.depth
+    for h, (y1, y2) in ys.items():
+        out1[h], out2[h] = y1, y2
+    out1[-1] = layer_norm(m.dec_norm, out1[-1], cfg.dec.ln_eps)
+    out2[-1] = layer_norm(m.dec_norm, out2[-1], cfg.dec.ln_eps)
+    return out1, out2
 
 
 def downstream_head(m: DUSt3R, head_num: int, dec_states: List,
                     img_hw: Tuple[int, int], cfg: DUSt3RConfig,
-                    prec: Optional[Precision] = None) -> Dict[str, torch.Tensor]:
-    """The head runs in prec.head_dtype (fp32 by default); outputs fp32."""
+                    prec: Optional[Precision] = None,
+                    graphs: Optional[LayerGraphs] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The head runs in prec.head_dtype (fp32 by default); outputs fp32.
+    graphs: replay the head as a CUDA graph from these (`utils.graphs`)."""
     dt = torch.float32 if prec is None else prec.head_dtype
     with span("spann3r.head"):
-        states = [None if s is None else s.to(dt) for s in dec_states]
-        out = head_apply(getattr(m, f"downstream_head{head_num}"), states,
-                         img_hw, cfg)
-        return {k: v.float() for k, v in out.items()}
+        return graphed(graphs, f"head{head_num}", _head, m, head_num,
+                       dec_states, img_hw, cfg, dt)
+
+
+def _head(m: DUSt3R, head_num: int, dec_states: List,
+          img_hw: Tuple[int, int], cfg: DUSt3RConfig,
+          dt: torch.dtype) -> Dict[str, torch.Tensor]:
+    states = [None if s is None else s.to(dt) for s in dec_states]
+    out = head_apply(getattr(m, f"downstream_head{head_num}"), states,
+                     img_hw, cfg)
+    return {k: v.float() for k, v in out.items()}
 
 
 @torch.no_grad()

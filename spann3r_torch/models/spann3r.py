@@ -20,6 +20,7 @@ activation rematerialisation as an option.
 """
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -29,6 +30,7 @@ from torch import nn
 
 from ..config import BF16, Precision, Spann3RConfig, ViTConfig
 from ..ops.layers import gelu, init_conv_, init_modules_, layer_norm, linear
+from ..utils.graphs import LayerGraphs, graphed
 from ..utils.trace import span
 from . import dust3r as d3
 from .memory import (MemoryState, add_mem, add_mem_check, init_memory,
@@ -131,30 +133,40 @@ class PairOutputs(NamedTuple):
     dec2_hooks: Optional[Tuple[torch.Tensor, ...]] = None
 
 
+def _key_heads(model: Spann3R, feat1: torch.Tensor, dec1_last: torch.Tensor,
+               feat2: torch.Tensor, dec2_last: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (attn_head_apply(model.attn_head_1, feat1, dec1_last),
+            attn_head_apply(model.attn_head_2, feat2, dec2_last))
+
+
 def pair_step(model: Spann3R, cfg: Spann3RConfig, feat_fuse: torch.Tensor,
               feat1: torch.Tensor, feat2: torch.Tensor, pos: torch.Tensor,
               img_hw: Tuple[int, int], prec: Precision = BF16,
-              compute_res2: bool = True, remat: bool = False) -> PairOutputs:
+              compute_res2: bool = True, remat: bool = False,
+              graphs: Optional[LayerGraphs] = None) -> PairOutputs:
     """Decode one (reference, target) pair and build the memory features.
     feat_fuse: memory-fused reference features (feat1 on the first pair).
     remat: recompute each decoder and value-encoder block in the backward
-    (training)."""
+    (training). graphs: replay the decoders, the key heads, the reference
+    head and the value encoder as CUDA graphs from these (`utils.graphs`);
+    the target head, when computed here, stays eager."""
     dcfg = cfg.dust3r
     dm = model.dust3r
     dec1, dec2 = d3.decoder(dm, feat_fuse, pos, feat2, pos, dcfg, prec,
-                            remat)
+                            remat, graphs=graphs)
     with span("spann3r.memory.value"):
-        feat_k1 = attn_head_apply(model.attn_head_1, feat1, dec1[-1])
-        feat_k2 = attn_head_apply(model.attn_head_2, feat2, dec2[-1])
-    res1 = d3.downstream_head(dm, 1, dec1, img_hw, dcfg, prec)
+        feat_k1, feat_k2 = graphed(graphs, "keys", _key_heads, model, feat1,
+                                   dec1[-1], feat2, dec2[-1])
+    res1 = d3.downstream_head(dm, 1, dec1, img_hw, dcfg, prec, graphs=graphs)
     if compute_res2:
         res2, hooks2 = d3.downstream_head(dm, 2, dec2, img_hw, dcfg, prec), None
     else:
         res2 = None
         hooks2 = tuple([dec2[0]] + [dec2[h] for h in d3.head_hooks(dcfg)])
     with span("spann3r.memory.value"):
-        cur_v = encode_value(model, cfg, res1["pts3d"], dec1[-1], pos, prec,
-                             remat)
+        cur_v = graphed(graphs, "value", encode_value, model, cfg,
+                        res1["pts3d"], dec1[-1], pos, prec, remat)
     return PairOutputs(res1, res2, feat_k1, feat_k2, cur_v, hooks2)
 
 
@@ -293,6 +305,11 @@ def _prep(img: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return img.to(dtype)
 
 
+def _encode_frame(m: d3.DUSt3R, img: torch.Tensor, cfg, prec: Precision
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return d3.encode_tokens(m, _prep(img, prec.compute_dtype), cfg, prec)
+
+
 @torch.no_grad()
 def scan_video_chunk(model: Spann3R, cfg: Spann3RConfig, carry: VideoCarry,
                      imgs: torch.Tensor, img_hw: Tuple[int, int],
@@ -354,11 +371,25 @@ def scan_video_chunk(model: Spann3R, cfg: Spann3RConfig, carry: VideoCarry,
 class InferenceEngine:
     """Reconstruction of a frame stream with eval memory semantics (cosine
     dedup, working -> long-term spill, usage-based pruning): chunked over a
-    whole video (`run_video`), or a frame at a time (`step`, `run`)."""
+    whole video (`run_video`), or a frame at a time (`step`, `run`).
+
+    On the card, `step` replays the layers whose shapes the engine's batch
+    and frame size fix as CUDA graphs (`utils.graphs`): the encoder of the
+    new frame with its normalisation, the decoders, the memory's key heads,
+    the reference-frame head and the value encoder, each captured on the
+    first step that runs it. The memory's read and write, whose bank
+    changes size, and the target-frame head stay eager. `cuda_graphs=False`
+    keeps every layer eager. The graphs read the model's parameters where
+    they were at capture; `reset` drops them if any parameter has been
+    replaced by another tensor since.
+
+    `stats`: `memory_reads` and `graph_replays` (the steps whose graphed
+    layers all replayed) of the current stream, and `graph_captures`, the
+    graphs the engine has captured, which a reset keeps."""
 
     def __init__(self, model: Spann3R, cfg: Spann3RConfig,
                  img_hw: Tuple[int, int], prec: Precision = BF16,
-                 batch: int = 1):
+                 batch: int = 1, cuda_graphs: bool = True):
         self.model = model
         self.cfg = cfg
         self.prec = prec
@@ -369,14 +400,28 @@ class InferenceEngine:
         self.p_tokens = ((self.img_hw[0] // dcfg.patch_size)
                          * (self.img_hw[1] // dcfg.patch_size))
         self.carry: Optional[VideoCarry] = None
+        self._cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._graphs: Optional[LayerGraphs] = None
+        self._graph_params: Tuple[int, ...] = ()
         self.reset()
+
+    def _param_addresses(self) -> Tuple[int, ...]:
+        return tuple(t.data_ptr() for t in itertools.chain(
+            self.model.parameters(), self.model.buffers()))
 
     # -- frame at a time -----------------------------------------------------
 
     def reset(self) -> None:
         """Start a new stream: no bank (the first pair allocates an empty
         one), no previous frame."""
-        self.stats: Dict[str, int] = {"memory_reads": 0}
+        if self._cuda_graphs:
+            params = self._param_addresses()
+            if self._graphs is None or params != self._graph_params:
+                self._graphs = LayerGraphs(self.device)
+                self._graph_params = params
+        self.stats: Dict[str, int] = {
+            "memory_reads": 0, "graph_replays": 0,
+            "graph_captures": self._graphs.captures if self._graphs else 0}
         self.mem: Optional[MemoryState] = None
         self._feat_prev: Optional[torch.Tensor] = None
         self._feat_k2: Optional[torch.Tensor] = None
@@ -386,9 +431,9 @@ class InferenceEngine:
     def encode(self, img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """img: (B, H, W, 3) uint8 or normalised float on the model's
         device -> tokens (B, P, D), positions (B, P, 2)."""
-        return d3.encode_image(self.model.dust3r,
-                               _prep(img, self.prec.compute_dtype),
-                               self.cfg.dust3r, self.prec)
+        with span("spann3r.encode"):
+            return graphed(self._graphs, "encode", _encode_frame,
+                           self.model.dust3r, img, self.cfg.dust3r, self.prec)
 
     def put_frame(self, frame) -> torch.Tensor:
         """Start the copy of one (B, H, W, 3) frame to the model's device:
@@ -409,33 +454,44 @@ class InferenceEngine:
         The target-frame head is deferred: the step keeps the decoder's
         hook states, and `target_prediction()` (or want_res2=True) runs the
         head on them when a target prediction is wanted."""
+        graphs = self._graphs
+        if graphs is not None:
+            captures, replays = graphs.captures, graphs.replays
         with span("spann3r.step"):
-            feat2, pos = self.encode(img)
-            if self._feat_prev is None:
-                self._feat_prev = feat2
-                return None
-            if self._feat_k2 is None:
-                feat_fuse = self._feat_prev
-            else:
-                feat_fuse, self.mem = memory_read(
-                    self.model, self.mem, self._feat_k2,
-                    attn_thresh=self.cfg.memory.attn_thresh)
-                self.stats["memory_reads"] += 1
-            out = pair_step(self.model, self.cfg, feat_fuse, self._feat_prev,
-                            feat2, pos, self.img_hw, self.prec,
-                            compute_res2=False)
-            if self.mem is None:
-                self.mem = init_memory(self.batch,
-                                       self.cfg.memory.capacity(self.p_tokens),
-                                       self.cfg.attn_head_out,
-                                       dtype=self.prec.compute_dtype,
-                                       device=self.device)
-            self.mem = add_mem_check(self.mem, out.feat_k1,
-                                     out.cur_v + out.feat_k1, self.cfg.memory)
-            self._feat_prev, self._feat_k2 = feat2, out.feat_k2
-            self._last_hooks = out.dec2_hooks
-            return {"res1": out.res1,
-                    "res2": self.target_prediction() if want_res2 else None}
+            out = self._step(img, want_res2)
+        if graphs is not None:
+            self.stats["graph_captures"] = graphs.captures
+            if graphs.captures == captures and graphs.replays > replays:
+                self.stats["graph_replays"] += 1
+        return out
+
+    def _step(self, img: torch.Tensor, want_res2: bool):
+        feat2, pos = self.encode(img)
+        if self._feat_prev is None:
+            self._feat_prev = feat2
+            return None
+        if self._feat_k2 is None:
+            feat_fuse = self._feat_prev
+        else:
+            feat_fuse, self.mem = memory_read(
+                self.model, self.mem, self._feat_k2,
+                attn_thresh=self.cfg.memory.attn_thresh)
+            self.stats["memory_reads"] += 1
+        out = pair_step(self.model, self.cfg, feat_fuse, self._feat_prev,
+                        feat2, pos, self.img_hw, self.prec,
+                        compute_res2=False, graphs=self._graphs)
+        if self.mem is None:
+            self.mem = init_memory(self.batch,
+                                   self.cfg.memory.capacity(self.p_tokens),
+                                   self.cfg.attn_head_out,
+                                   dtype=self.prec.compute_dtype,
+                                   device=self.device)
+        self.mem = add_mem_check(self.mem, out.feat_k1,
+                                 out.cur_v + out.feat_k1, self.cfg.memory)
+        self._feat_prev, self._feat_k2 = feat2, out.feat_k2
+        self._last_hooks = out.dec2_hooks
+        return {"res1": out.res1,
+                "res2": self.target_prediction() if want_res2 else None}
 
     @torch.no_grad()
     def target_prediction(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -491,7 +547,7 @@ class InferenceEngine:
         coordinates, as fp32 numpy arrays; the last entry is the target
         frame's prediction from the deferred head."""
         t_total = len(frames)
-        self.stats = {"memory_reads": 0}
+        self.stats["memory_reads"] = 0
         carry = init_video_carry(self.cfg, self.img_hw, self.batch, self.prec,
                                  self.device)
         emitted = []

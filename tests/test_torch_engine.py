@@ -124,3 +124,21 @@ def test_encode_and_put_frame():
         ref, ref_pos = jeng.encode(jnp.asarray(img))
         _close(feats, ref)
         np.testing.assert_array_equal(pos.numpy(), np.asarray(ref_pos))
+
+
+def test_cpu_engine_never_captures():
+    """CUDA graphs are the card's alone: an engine on the CPU captures and
+    replays nothing, over two streams, and gives the bits of an engine
+    built with its graphs turned off."""
+    _, tcfg, _, _, model = _models("dpt")
+    frames = _frames("dpt", seed=64)
+    engines = [TS.InferenceEngine(model, tcfg, HW["dpt"], TC.FP32,
+                                  cuda_graphs=on) for on in (True, False)]
+    runs = [[e.run(frames) for _ in range(2)] for e in engines]
+    for e in engines:
+        assert e._graphs is None
+        assert e.stats["graph_captures"] == e.stats["graph_replays"] == 0
+    for a, b in zip(sum(runs[0], []), sum(runs[1], [])):
+        assert list(a) == list(b)
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)

@@ -56,7 +56,7 @@ MODULES = [
     "spann3r_torch.models.croco_pretrain", "spann3r_torch.pretraining",
     "spann3r_torch.pretrain", "spann3r_torch.tools.pretrain_profile",
     "spann3r_torch.models.global_align", "spann3r_torch.utils.viz3d",
-    "spann3r_torch.utils.trace",
+    "spann3r_torch.utils.trace", "spann3r_torch.utils.graphs",
     "spann3r_torch.parallel.streams", "spann3r_torch.tools.render_dtu",
     "spann3r_torch.tools.serving_table",
     "spann3r_torch.models.croco_downstream", "spann3r_torch.stereoflow",
