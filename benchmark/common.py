@@ -1,9 +1,10 @@
-"""What every driver shares: the configuration read into the program's
-objects, the model built with the benchmark's weights, the device's
-record, the host's clock, the reservoir that samples finished requests,
-the comparison of two pointmap sets, and the check of the heads alone."""
+"""What every driver shares: the run's context with its model kind and
+driver, the model built by its kind with the benchmark's weights, the
+host's clock, the reservoir that samples finished requests, the
+comparison of two outputs, and the check of the DPT heads alone."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import random
@@ -13,6 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from benchmark import find
 from benchmark import weights as bw
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -37,61 +39,41 @@ class Ctx:
         """A numpy generator for one purpose of this run, from the seed."""
         return np.random.default_rng([int(self.seed) & 0xFFFFFFFFFFFF, salt])
 
+    @property
+    def kind(self):
+        """The configuration's model kind, benchmark/models/<model>.py."""
+        return find("models", self.cfg["model"])
 
-def port_configs(cfg: dict):
-    """The program's configuration and precision for a configuration file."""
-    from spann3r_torch.config import (DUSt3RConfig, MemoryConfig, Precision,
-                                      Spann3RConfig, ViTConfig)
-    inf = {"inf": math.inf, "-inf": -math.inf}
-    mode = lambda m: (m[0], float(inf.get(m[1], m[1])), float(inf.get(m[2], m[2])))
-    d = DUSt3RConfig(
-        img_size=tuple(cfg.get("img_size", (512, 512))),
-        patch_size=cfg["patch_size"],
-        enc=ViTConfig(dim=cfg["enc_embed_dim"], depth=cfg["enc_depth"],
-                      num_heads=cfg["enc_num_heads"], mlp_ratio=cfg["mlp_ratio"],
-                      rope_base=cfg["rope_base"]),
-        dec=ViTConfig(dim=cfg["dec_embed_dim"], depth=cfg["dec_depth"],
-                      num_heads=cfg["dec_num_heads"], mlp_ratio=cfg["mlp_ratio"],
-                      rope_base=cfg["rope_base"]),
-        head_type=cfg["head_type"], depth_mode=mode(cfg["depth_mode"]),
-        conf_mode=mode(cfg["conf_mode"]), dpt_feature_dim=cfg["dpt_feature_dim"],
-        dpt_last_dim=cfg["dpt_last_dim"],
-        dpt_layer_dims=tuple(cfg["dpt_layer_dims"]),
-        out_channels=cfg["out_channels"])
-    p = cfg["precision"]
-    prec = Precision(compute_dtype=DTYPES[p["compute"]],
-                     head_dtype=DTYPES[p["heads"]])
-    if cfg["model"] == "dust3r":
-        return d, prec
-    m = cfg["memory"]
-    s = Spann3RConfig(
-        dust3r=d,
-        memory=MemoryConfig(long_mem_size=m["long_mem_size"],
-                            work_mem_size=m["work_mem_size"],
-                            attn_thresh=m["attn_thresh"],
-                            sim_thresh=m["sim_thresh"],
-                            mem_dropout=m["mem_dropout"]),
-        value_enc_depth=cfg["value_enc_depth"], value_enc_dim=cfg["value_enc_dim"],
-        value_enc_heads=cfg["value_enc_heads"], attn_head_in=cfg["attn_head_in"],
-        attn_head_out=cfg["attn_head_out"])
-    return s, prec
+    @property
+    def driver(self):
+        """The traffic's driver, benchmark/drivers/<driver>.py."""
+        return find("drivers", self.traffic["driver"])
 
 
 def build_program_model(ctx: Ctx):
-    """The program's model for the configuration, on the device, holding
-    the benchmark's weights for the seed: built on the meta device, its
-    storage allocated on the device, then filled."""
-    from spann3r_torch.models.dust3r import DUSt3R
-    from spann3r_torch.models.spann3r import Spann3R
+    """(the program's model on the device, holding the benchmark's weights
+    for the seed, its configuration, its precision): the kind's build."""
+    return ctx.kind.build(ctx)
 
-    pcfg, prec = port_configs(ctx.cfg)
+
+def precision(cfg: dict):
+    """The program's precision for the configuration's `precision`."""
+    from spann3r_torch.config import Precision
+    p = cfg["precision"]
+    return Precision(compute_dtype=DTYPES[p["compute"]], head_dtype=DTYPES[p["heads"]])
+
+
+def on_device(ctx: Ctx, make):
+    """The module make() returns, built on the meta device, its storage
+    allocated on the device, then filled with the benchmark's weights for
+    the seed."""
     with torch.device("meta"):
-        model = DUSt3R(pcfg) if ctx.cfg["model"] == "dust3r" else Spann3R(pcfg)
+        model = make()
     model = model.to_empty(device=ctx.device)
     w = bw.generate(ctx.cfg, ctx.seed, ctx.device)
     model.load_state_dict(w, strict=True)
     del w
-    return model.eval(), pcfg, prec
+    return model.eval()
 
 
 def set_tf32_off() -> None:
@@ -155,6 +137,17 @@ class Window:
     @property
     def over(self) -> bool:
         return time.perf_counter() - self.t0 >= self.seconds
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """module.name replaced by fn inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
 
 
 def program_head(dust3r_model, dcfg, prec):

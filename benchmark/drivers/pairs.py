@@ -25,6 +25,15 @@ from benchmark.reference import model as rm
 from benchmark.trace import Tracer
 
 
+# the CPU tests' traffic
+SHORT = dict(hw=[32, 48], views=4, batch=3)
+# no faults of its own: its controls are every cell's (control.py)
+FAULTS = {}
+# the checks each control has to fail, one of them
+CAUGHT_BY = {"fp8": ["pts3d_err_over_fp8", "conf_rel_err"],
+             "heads-tf32": ["head_rel_err"], "heads-bf16": ["head_rel_err"]}
+
+
 def complete_pairs(n: int):
     """(i, j) of the symmetrised complete graph, in make_pairs' order."""
     pairs = [(i, j) for i in range(n) for j in range(i)]
@@ -91,9 +100,8 @@ def run(ctx: common.Ctx) -> dict:
     # the program is alive
     imgs = torch.from_numpy(scenes[sample.item[0]]).to(ctx.device)
     first = ij[:tr["batch"]]
-    head = common.head_rel_err(rm.Ref(bw.generate(ctx.cfg, ctx.seed, ctx.device), ctx.cfg),
-                               common.program_head(model, pcfg, prec),
-                               imgs[[i for i, _ in first]], imgs[[j for _, j in first]])
+    head = ctx.kind.head_rel_err(ctx, model, pcfg, prec, imgs[[i for i, _ in first]],
+                                 imgs[[j for _, j in first]])
     del model, imgs
     gc.collect()
     if ctx.device.type == "cuda":
@@ -140,3 +148,28 @@ def check(ctx, scenes, sample, ij) -> dict:
     return {"pts3d_err_over_fp8": worst["prog_p"] / worst["fp8_p"],
             "conf_rel_err": worst["prog_c"], "pts3d_rel_err_worst": worst["prog_p"],
             "fp8_pts3d_rel_err_worst": worst["fp8_p"]}
+
+
+def reference_checks(ctx, exact, low) -> tuple:
+    """The cell's numbers with the reference `low` in the program's place,
+    on the first scene, pair by pair (control.py)."""
+    tr, dev = ctx.traffic, ctx.device
+    hw = tuple(tr["hw"])
+    scenes = [generate.scene(ctx.rng(s), tr["views"], hw)
+              for s in range(tr["scenes"])]
+    ij = complete_pairs(tr["views"])
+    imgs = torch.from_numpy(scenes[0]).to(dev)
+    first = ij[:tr["batch"]]
+    head = common.head_rel_err(exact, low.head, imgs[[i for i, _ in first]],
+                               imgs[[j for _, j in first]])
+    feats, pos = low.encode(imgs)
+    r1s, r2s = [], []
+    for i, j in ij:
+        s1, s2 = low.decode(feats[i:i + 1], feats[j:j + 1], pos[:1], pos[:1])
+        r1s.append(low.head(1, s1, hw))
+        r2s.append(low.head(2, s2, hw))
+    cat = lambda rs, k: torch.cat([r[k] for r in rs]).cpu().numpy()
+    got = {"pred1": {"pts3d": cat(r1s, "pts3d"), "conf": cat(r1s, "conf")},
+           "pred2": {"pts3d_in_other_view": cat(r2s, "pts3d"),
+                     "conf": cat(r2s, "conf")}}
+    return dict(check(ctx, scenes, (0, got), ij), head_rel_err=head), None

@@ -13,6 +13,7 @@ the seed, cycled), warmup_frames, trace_start, trace_frames.
 from __future__ import annotations
 
 import gc
+import itertools
 import statistics
 import time
 
@@ -23,6 +24,9 @@ from benchmark import weights as bw
 from benchmark.counts import flops, kernels
 from benchmark.reference import model as rm
 from benchmark.trace import Tracer
+
+# the CPU tests' traffic
+SHORT = dict(hw=[32, 48], frames=14, warmup_frames=12, trace_start=2, trace_frames=3)
 
 
 def run(ctx: common.Ctx) -> dict:
@@ -127,9 +131,7 @@ def run(ctx: common.Ctx) -> dict:
     # the heads alone, on the first video's first pair, while the program
     # is alive
     first = torch.from_numpy(generate.normalise(videos[0][:2])).to(ctx.device)
-    head = common.head_rel_err(rm.Ref(bw.generate(ctx.cfg, ctx.seed, ctx.device), ctx.cfg),
-                               common.program_head(model.dust3r, pcfg.dust3r, prec),
-                               first[0], first[1])
+    head = ctx.kind.head_rel_err(ctx, model, pcfg, prec, first[0], first[1])
     del engine, model, first
     gc.collect()
     if ctx.device.type == "cuda":
@@ -389,3 +391,143 @@ def pooled_numbers(records, thresh: float) -> dict:
                dedup_flip_margin=max(margin), dedup_skipped_by_program=skips[0],
                dedup_skipped_by_reference=skips[1])
     return out
+
+
+def reference_checks(ctx, exact, low) -> tuple:
+    """The cell's numbers with the reference `low` in the program's place,
+    following its own dedup decisions, over every distinct video
+    (control.py): (numbers, each video's record). Its bank transitions
+    are kept and replayed as a run's are."""
+    tr, dev = ctx.traffic, ctx.device
+    w = exact.w
+    hw = tuple(tr["hw"])
+    records = []
+    for v in range(tr["videos"]):
+        frames = torch.from_numpy(generate.normalise(generate.room_video(
+            ctx.rng(v), tr["frames"], 1, hw, dev))).to(dev)
+        if v == 0:
+            head = common.head_rel_err(exact, low.head, frames[0], frames[1])
+        outs, log = [], []
+        bank = Transitions(int(ctx.rng(200 + v).integers(1 << 62)))
+        rm.stream(low, frames, lambda t, p, c: outs.append((p, c)), log=log,
+                  on_step=bank.offer)
+        # the control's own write decisions, which the references follow
+        dups = [None] + [torch.tensor([own for _, own in row]) for row in log]
+        rec = yardstick_errors(ctx, w, frames, lambda t, s: (outs[t][0][s], outs[t][1][s]),
+                               dups)
+        rec["slot_gaps"] = slot_gaps(ctx, w, frames, bank.items, dups)
+        records.append(rec)
+        del frames, outs, bank
+    numbers = pooled_numbers(records, ctx.cfg["memory"]["sim_thresh"])
+    return dict(numbers, head_rel_err=head), records
+
+
+def program_checks(ctx) -> tuple:
+    """The program over every distinct video, after the run's warm-up,
+    each as the run's window runs it, then checked as a run checks them
+    (control.py): (numbers, each video's record, with the bank's counters
+    after each frame under `bank`)."""
+    from spann3r_torch.models.spann3r import InferenceEngine
+
+    tr, dev = ctx.traffic, ctx.device
+    hw, n = tuple(tr["hw"]), tr["frames"]
+    model, pcfg, prec = common.build_program_model(ctx)
+    engine = InferenceEngine(model, pcfg, hw, prec, batch=1)
+    videos = [generate.room_video(ctx.rng(v), n, 1, hw, dev) for v in range(tr["videos"])]
+
+    def run_video(v, video, frames):
+        engine.reset()
+        outs, written = [], []
+        bank = Transitions(int(ctx.rng(200 + v).integers(1 << 62)))
+        for i in range(frames):
+            before = (engine.mem, engine._feat_k2)
+            res = engine.step(engine.put_frame(video[i]))
+            written.append(None if engine.mem is None else (engine.mem.size, engine.mem.wm))
+            if res is not None:
+                outs.append((res["res1"]["pts3d"].cpu(), res["res1"]["conf"].cpu()))
+            if i == frames - 1:
+                t = engine.target_prediction()
+                outs.append((t["pts3d"].cpu(), t["conf"].cpu()))
+            bank.offer(i, *before, engine.mem)
+        return outs, written, bank
+
+    run_video(0, videos[0], tr["warmup_frames"])
+    kept = {v: run_video(v, video, n) for v, video in enumerate(videos)}
+    first = torch.from_numpy(generate.normalise(videos[0][:2])).to(dev)
+    head = ctx.kind.head_rel_err(ctx, model, pcfg, prec, first[0], first[1])
+    del engine, model, first
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    records = []
+    numbers = check(ctx, videos, kept, hw, records)
+    for rec, (_, written, _) in zip(records, (kept[v] for v in sorted(kept))):
+        rec["bank"] = [None if w is None else (int(w[0][0]), int(w[1][0])) for w in written]
+    return dict(numbers, head_rel_err=head), records
+
+
+# The faults of the online cells that control.py plants (PERF.md):
+
+
+def tenth_frames():
+    """Every tenth pair's reference-frame pointmap, as the pair step
+    returns it, scaled by 1.5: the fault on a tenth of the frames that the
+    spike statistic exists for."""
+    import spann3r_torch.models.spann3r as sp
+    orig, calls = sp.pair_step, itertools.count()
+
+    def altered(*a, **kw):
+        out = orig(*a, **kw)
+        if next(calls) % 10 == 9:
+            out.res1["pts3d"] = out.res1["pts3d"] * 1.5
+        return out
+
+    return common.patched(sp, "pair_step", altered)
+
+
+def dedup_off():
+    """The write never skipped as a duplicate, which `dedup_skip_gap`
+    exists for."""
+    import spann3r_torch.models.memory as mem
+    return common.patched(mem, "check_sim", lambda state, k, *a: torch.zeros(
+        k.shape[0], dtype=torch.bool, device=k.device))
+
+
+def prune_truncates():
+    """The prune keeping the bank's first long_mem_size slots, by place
+    alone, in place of the young slots first (`bank_slot_gap`)."""
+    import spann3r_torch.models.memory as mem
+
+    def truncated(state, cfg):
+        keep = cfg.long_mem_size
+        cut = lambda a: torch.cat([a[:, :keep], torch.zeros_like(a[:, keep:])], 1)
+        return state._replace(k=cut(state.k), v=cut(state.v), count=cut(state.count),
+                              attn=cut(state.attn), size=torch.full_like(state.size, keep))
+
+    return common.patched(mem, "memory_prune", truncated)
+
+
+def long_term_zeroed():
+    """The tokens that spill to long-term memory lost: after each write,
+    the bank's long-term slots (its first `lm`) hold zeros
+    (`bank_slot_gap`)."""
+    import spann3r_torch.models.spann3r as sp
+    orig = sp.add_mem_check
+
+    def lost(state, k, v, cfg):
+        s = orig(state, k, v, cfg)
+        lt = (torch.arange(s.k.shape[1], device=s.k.device)[None] < s.lm[:, None])[..., None]
+        return s._replace(k=torch.where(lt, torch.zeros_like(s.k), s.k),
+                          v=torch.where(lt, torch.zeros_like(s.v), s.v))
+
+    return common.patched(sp, "add_mem_check", lost)
+
+
+FAULTS = {"tenth-frames": tenth_frames, "dedup-off": dedup_off,
+          "prune-truncates": prune_truncates, "long-term-zeroed": long_term_zeroed}
+# the checks each control has to fail, one of them
+CAUGHT_BY = {"fp8": ["pts3d_err_over_twin"],
+             "tenth-frames": ["pts3d_p95_spike_over_twin"],
+             "dedup-off": ["dedup_skip_gap"],
+             "prune-truncates": ["bank_slot_gap"], "long-term-zeroed": ["bank_slot_gap"],
+             "heads-tf32": ["head_rel_err"], "heads-bf16": ["head_rel_err"]}

@@ -2,9 +2,10 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A cell of BENCHMARK.json names a configuration (benchmark/configs/) and a
-traffic mix (benchmark/traffic/<name>.json), whose `driver` names the
-module under benchmark/drivers/ that runs it. The run makes the weights
+A cell of BENCHMARK.json names a configuration (benchmark/configs/), whose
+`model` names its kind's module under benchmark/models/, and a traffic
+mix (benchmark/traffic/<name>.json), whose `driver` names the module under
+benchmark/drivers/ that runs it. The run makes the weights
 and inputs from the seed, warms up (set-up), measures for `--seconds` on
 the host clock, then compares a sample of what the timed path produced
 with the plain fp32 reference (benchmark/reference/). With `--trace 1` a
@@ -27,7 +28,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -103,8 +103,7 @@ def execute(name: str, seed: int, seconds: float, trace: bool, device,
                      trace=trace, device=torch.device(device),
                      t_start=T_START if t_start is None else t_start,
                      limits=traffic["limits"])
-    driver = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
-    res = driver.run(ctx)
+    res = ctx.driver.run(ctx)
 
     e2e = [m for m in spec["end_to_end"] if "workloads" not in m
            or name in m["workloads"]]

@@ -13,7 +13,7 @@ import sys
 
 import pytest
 
-from benchmark import run
+from benchmark import find, run
 
 CELLS = [w["name"] for w in run.load_spec()["workloads"]]
 
@@ -49,40 +49,31 @@ def _control_lines(cell, control):
     return [json.loads(line) for line in out.stdout.strip().splitlines()]
 
 
-ONLINE_FAULTS = ["tenth-frames", "dedup-off", "prune-truncates", "long-term-zeroed"]
-# the checks each control has to fail, by the kind of cell (any one of
-# them)
-CAUGHT_BY = {
-    "online": {"fp8": ["pts3d_err_over_twin"],
-               "tenth-frames": ["pts3d_p95_spike_over_twin"],
-               "dedup-off": ["dedup_skip_gap"],
-               "prune-truncates": ["bank_slot_gap"], "long-term-zeroed": ["bank_slot_gap"],
-               "heads-tf32": ["head_rel_err"], "heads-bf16": ["head_rel_err"]},
-    "pairs": {"fp8": ["pts3d_err_over_fp8", "conf_rel_err"],
-              "heads-tf32": ["head_rel_err"], "heads-bf16": ["head_rel_err"]},
-}
+def _driver(cell):
+    return find("drivers", run.cell_parts(run.load_spec(), cell)[2]["driver"])
 
 
-def _online(cell):
-    return run.cell_parts(run.load_spec(), cell)[2]["driver"] == "stream_step"
-
-
+# each cell's entries that must fail: every cell's, and its driver's own
+# faults
 @pytest.mark.parametrize("cell,control", [
-    (c, k) for c in CELLS for k in ["fp8", "heads-tf32", "heads-bf16"]
-    + (ONLINE_FAULTS if _online(c) else [])])
+    (c, k) for c in CELLS
+    for k in ["fp8", "heads-tf32", "heads-bf16"] + list(getattr(_driver(c), "FAULTS", {}))])
 def test_control_fails(card, cell, control):
     lines = _control_lines(cell, control)
     assert lines and all(d["fails"] and d["must_fail"] for d in lines), lines
-    names = CAUGHT_BY["online" if _online(cell) else "pairs"][control]
+    # the checks the control has to fail, any one of them (the driver's
+    # CAUGHT_BY; any check where it names none)
+    names = getattr(_driver(cell), "CAUGHT_BY", {}).get(control)
     for d in lines:
-        assert any(d["checks"][k]["value"] > d["checks"][k]["limit"] for k in names), d
+        assert any(d["checks"][k]["value"] > d["checks"][k]["limit"]
+                   for k in names or d["checks"]), d
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_bf16_twin_passes(card, cell):
     lines = _control_lines(cell, "bf16-twin")
     assert lines and not any(d["fails"] or d["must_fail"] for d in lines), lines
-    if _online(cell):
+    if "bank_slot_gap" in lines[0]["checks"]:
         # its bank, replayed in fp32 from its own, to the bit
         assert all(d["checks"]["bank_slot_gap"]["value"] == 0.0
                    and d["notes"]["bank_transitions"] > 0 for d in lines), lines

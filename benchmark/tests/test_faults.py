@@ -13,6 +13,7 @@ import itertools
 import pytest
 import torch
 
+from benchmark.drivers import stream_step
 from benchmark.tests import tiny
 
 
@@ -90,8 +91,7 @@ def prune_truncates(mp):
     """The prune keeps the bank's first long_mem_size slots, by place
     alone, as control.py's `prune-truncates` plants it."""
     import spann3r_torch.models.memory as mem
-    from benchmark import control
-    with control.prune_truncates():
+    with stream_step.prune_truncates():
         fault = mem.memory_prune
     mp.setattr(mem, "memory_prune", fault)
 
@@ -100,8 +100,7 @@ def long_term_zeroed(mp):
     """The tokens that spill to long-term memory are zeroed, as control.py's
     `long-term-zeroed` plants it."""
     import spann3r_torch.models.spann3r as sp
-    from benchmark import control
-    with control.long_term_zeroed():
+    with stream_step.long_term_zeroed():
         fault = sp.add_mem_check
     mp.setattr(sp, "add_mem_check", fault)
 

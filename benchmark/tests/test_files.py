@@ -1,15 +1,17 @@
-"""BENCHMARK.json and the files it names: every cell names a known
-configuration and traffic mix, every traffic mix a known driver, every
-per-layer metric a reader, and the entries keep the contract's form."""
+"""BENCHMARK.json and the files it names: every configuration names a
+model kind whose module keeps the kinds' contract, every cell a known
+configuration and traffic mix, every traffic mix a driver that keeps the
+drivers' contract, every per-layer metric a reader, and the entries keep
+the contract's form. A name with no module raises a ValueError that names
+the module."""
 from __future__ import annotations
 
-import importlib
 import json
 import re
 
 import pytest
 
-from benchmark import run
+from benchmark import drivers, find, models, run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -34,7 +36,8 @@ def test_configs_load(spec):
                                                     "reduced", "why"}
         assert c["file"].startswith("benchmark/configs/")
         cfg = json.loads((run.ROOT / c["file"]).read_text())
-        assert cfg["model"] in ("spann3r", "dust3r")
+        kind = find("models", cfg["model"])
+        assert all(callable(getattr(kind, f, None)) for f in models.CONTRACT), kind
 
 
 def test_cells_name_known_files(spec):
@@ -46,7 +49,10 @@ def test_cells_name_known_files(spec):
         seen.add((w["config"], w["traffic"]))
         assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
         _, cfg, traffic = run.cell_parts(spec, w["name"])
-        importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
+        driver = find("drivers", traffic["driver"])
+        assert all(hasattr(driver, a) for a in drivers.CONTRACT), driver
+        assert callable(driver.run) and callable(driver.reference_checks)
+        assert isinstance(driver.SHORT, dict)
         # an exact comparison has the limit 0
         assert traffic["limits"] and all(v >= 0 for v in traffic["limits"].values())
     assert {c["config"] for c in spec["workloads"]} == configs
@@ -70,3 +76,24 @@ def test_metrics(spec):
                  if w in m.get("workloads", cells)]
         assert "setup_s" in names and len(names) >= 2
         assert any(w in m["workloads"] for m in spec["per_layer"])
+
+
+@pytest.mark.parametrize("package", ["models", "drivers"])
+def test_unknown_name_names_the_missing_module(package):
+    with pytest.raises(ValueError, match=rf"benchmark\.{package}\.no_such_name"):
+        find(package, "no_such_name")
+    with pytest.raises(ValueError, match="no module name"):
+        find(package, "a-b")
+
+
+def test_unknown_kind_falls_through_to_no_other():
+    import torch
+    from benchmark import common, weights
+    ctx = common.Ctx({"model": "no_such_name"}, {"driver": "no_such_driver"}, 1, 0.0,
+                     False, torch.device("cpu"), 0.0)
+    for look_up in (lambda: weights.spec(ctx.cfg), lambda: common.build_program_model(ctx)):
+        with pytest.raises(ValueError, match=r"benchmark\.models\.no_such_name"):
+            look_up()
+    with pytest.raises(ValueError, match=r"benchmark\.drivers\.no_such_driver"):
+        run.execute("spann3r.online-512", 1, 0.0, False, "cpu",
+                    traffic={"driver": "no_such_driver", "limits": {}})

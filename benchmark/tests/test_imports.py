@@ -1,6 +1,7 @@
 """What the benchmark loads: no module whose top-level name is jax, jaxlib,
 flax or the JAX package (spann3r_tpu), in a whole run; and the reference,
-the weights and the generators load nothing of the program either."""
+the weights (through the model kinds' modules) and the generators load
+nothing of the program either."""
 from __future__ import annotations
 
 import ast
@@ -19,11 +20,18 @@ from benchmark.tests import tiny
 res = tiny.execute("spann3r.online-512", seconds=0.5)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
+# the weights of every configuration are listed through its kind's module
 REFERENCE = """
 import json, sys
 import benchmark.reference.model, benchmark.weights, benchmark.generate
+from benchmark import run
+for c in run.load_spec()["configs"]:
+    assert benchmark.weights.n_params(json.loads((run.ROOT / c["file"]).read_text())) > 0
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
+# the one import of the benchmark's own: weights.spec finds the kind's
+# module by name
+LOOKUP = {"weights.py": {"benchmark"}}
 
 
 def _top_level_modules(code: str) -> set:
@@ -56,4 +64,6 @@ def test_reference_sources_import_only_torch_and_the_standard_library():
                 continue
             for n in names:
                 assert n.split(".")[0] in {"__future__", "math", "typing", "torch",
-                                           "numpy"}, (path, n)
+                                           "numpy"} | LOOKUP.get(path.name, set()), (path, n)
+                if n == "benchmark":
+                    assert [a.name for a in node.names] == ["find"], (path, n)

@@ -18,6 +18,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from benchmark import find
+
 Spec = List[Tuple[str, Tuple[int, ...], str]]
 
 
@@ -92,19 +94,9 @@ def dust3r_spec(cfg, prefix="") -> Spec:
 
 
 def spec(cfg: dict) -> Spec:
-    """Every tensor of the model the configuration describes."""
-    if cfg["model"] == "dust3r":
-        return dust3r_spec(cfg)
-    v, ain, aout = cfg["value_enc_dim"], cfg["attn_head_in"], cfg["attn_head_out"]
-    s = dust3r_spec(cfg, "dust3r.")
-    for i in range(cfg["value_enc_depth"]):
-        s += _block(f"value_encoder.{i}", v)
-    s += _ln("value_norm", v) + _linear("value_out", aout, v)
-    for n in ("norm_q", "norm_k", "norm_v"):
-        s += _ln(n, aout)
-    for h in (1, 2):
-        s += _linear(f"attn_head_{h}.0", ain, ain) + _linear(f"attn_head_{h}.2", aout, ain)
-    return s + _conv("pos_patch_embed.proj", v, 3, cfg["patch_size"], rule="conv_flat")
+    """Every tensor of the model the configuration describes: its kind's
+    list (benchmark/models/<model>.py)."""
+    return find("models", cfg["model"]).spec(cfg)
 
 
 def _limit(shape, rule) -> float:
